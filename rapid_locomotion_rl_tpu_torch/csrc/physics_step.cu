@@ -1,0 +1,59 @@
+// Fused physics step on Hopper: one thread per env runs a whole control-step
+// physics call (num_substeps substeps of csrc/substep_chain.cuh).
+//
+// Replaces the TPU kernel rapid_locomotion_rl_tpu/ops/pallas_physics.py::
+// _kernel (launched by physics_step_pallas), which traced
+// soa_physics.substep_chain unrolled over every body and geom with the robot
+// model baked in as literals. Here the body is written by hand with loops
+// that run at run time, and the model comes from a packed constant table.
+//
+// What bounds it on this card: per env it reads C_in and writes C_out float
+// channels (Go1, implicit PD on: 67 in, 259 out, 5.3 MB at 4096 envs, about
+// 1.6 us at 3.35 TB/s), against some 10^5 float operations per env, so the
+// arithmetic bounds it (about 0.3 GFLOP per call at 4096 envs, a few us at
+// the 67 TFLOP/s fp32 peak). The first version keeps the per-body 6x6
+// inertias and per-geom 3x3 inverse inertias of one env in local memory
+// (they do not fit in registers), so in practice it is bound by local-memory
+// traffic through L1/L2 and by occupancy: 4096 threads fill only 32 blocks
+// of 128 on 132 SMs. Channel-major [C, n] arrays make every global load and
+// store coalesced across a warp. Making it fast is later work.
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+// -Xcompiler -fPIC --fmad=false (no fused multiply-add, so that the kernel
+// rounds like its plain PyTorch version). No PyTorch header is included:
+// the library has a plain C interface, loaded with ctypes.
+#include <cuda_runtime.h>
+
+#include "substep_chain.cuh"
+
+template <int D, int K, bool IMP>
+__global__ void __launch_bounds__(128) physics_step_kernel(
+    const float* __restrict__ x, float* __restrict__ y,
+    const float* __restrict__ cst, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  rl::Chain<D, K, IMP>::run(x, y, cst, n, i);
+}
+
+template <int D, int K, bool IMP>
+static cudaError_t launch(const float* x, float* y, const float* cst, int n,
+                          cudaStream_t stream) {
+  const int threads = 128;
+  const int blocks = (n + threads - 1) / threads;
+  physics_step_kernel<D, K, IMP><<<blocks, threads, 0, stream>>>(x, y, cst, n);
+  return cudaGetLastError();
+}
+
+// Returns the cudaError_t of the launch (0 = launched). Only the variant the
+// env runs is built for the card: the quadruped limb layout D x K = 3 x 4
+// with the implicit-PD input (zeros when implicit PD is off). Any other
+// variant is refused with cudaErrorInvalidValue; physics_step_host.cpp
+// builds the others for the CPU tests.
+extern "C" int rl_physics_step(const float* x, float* y, const float* cst,
+                               int n, int D, int K, int has_imp,
+                               void* stream) {
+  if (n <= 0 || D != 3 || K != 4 || !has_imp)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch<3, 4, true>(x, y, cst, n,
+                                 static_cast<cudaStream_t>(stream));
+}

@@ -1,0 +1,367 @@
+"""The physics step as one hand-written CUDA kernel, and its wrapper.
+
+:func:`physics_step_cuda` has the signature and :class:`StepOutput` of the
+plain :func:`.soa_physics.physics_step_soa`. For tensors on the card it
+launches the kernel of ``csrc/physics_step.cu`` (one thread per env, each
+running the whole control-step call of ``csrc/substep_chain.cuh``); for
+tensors on the CPU it runs the plain version. It replaces the JAX package's
+Pallas kernel ``ops/pallas_physics.py::_kernel``.
+
+The kernel library is built at first use by ``nvcc`` into
+``build/torch_kernels/<hash of csrc/>/`` and loaded with ``ctypes``: the
+sources have a plain C interface and include no PyTorch header, so the
+build takes seconds. Only the variant the env runs is built for the card:
+the quadruped limb layout (3 x 4) with the implicit-damping input. The same
+per-env body also builds with ``g++`` into a CPU library, in every variant
+(:func:`build_host_library`), which the CPU tests hold against the plain
+version.
+
+Layout: the wrapper packs the inputs into one [C_in, N] float32 array,
+channel-major (state 13+2nv, tau nv, payload 1, CoM shift 3, restitution 1,
+mixed friction 1, then implicit damping nv when given), and unpacks the
+[13+2nv+3nr+3ng, N] output. The robot model is a flat float32 table packed
+once per (model, sim config, device) by :func:`pack_constants`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .. import ROOT_DIR
+from .dynamics import PhysParams, SimState
+from .limb_dynamics import LimbLayout, np_spatial_inertia
+from .physics import StepOutput
+from .soa_physics import check_supported, physics_step_soa
+
+CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "csrc")
+SOURCES = ("substep_chain.cuh", "physics_step.cu", "physics_step_host.cpp")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "--fmad=false",
+              "-Xptxas", "-v")
+HOST_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC", "-ffp-contract=off",
+              "-Wno-unknown-pragmas")
+
+# constant-table layout; mirrors the RL_* offsets of csrc/substep_chain.cuh
+HDR = 16
+BASE_SIZE = 12
+SLOT = 66
+GEOM = 6
+MAX_NG = 64
+MAX_NR = 32
+LAYOUTS = ((3, 4), (1, 2))   # (D, K) instantiated in the host source
+CUDA_LAYOUT = (3, 4)         # the one built for the card, implicit PD on
+
+
+def sources_hash() -> str:
+    h = hashlib.sha256()
+    for name in SOURCES:
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            h.update(name.encode() + b"\0" + f.read())
+    return h.hexdigest()[:16]
+
+
+def _compile(cmd, out_path):
+    """Run a compiler command that writes ``out_path`` via a temp file, so a
+    concurrent or cut build never leaves a half-written library."""
+    os.makedirs(os.path.dirname(out_path), exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(out_path))
+    os.close(fd)
+    try:
+        proc = subprocess.run(list(cmd) + ["-o", tmp], capture_output=True,
+                              text=True, cwd=CSRC_DIR)
+        if proc.returncode != 0:
+            raise RuntimeError(f"kernel build failed ({' '.join(cmd)}):\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, out_path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return proc.stdout + proc.stderr
+
+
+def build_cuda_library():
+    """Build (or find) the CUDA library; returns (path, compiler log). The
+    log holds ptxas's register, spill and shared-memory lines; it is empty
+    when the library was already built from these sources."""
+    out = os.path.join(ROOT_DIR, "build", "torch_kernels", sources_hash(),
+                       "libphysics_step.so")
+    if os.path.exists(out):
+        return out, ""
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: the CUDA toolkit is required to "
+                           "build the physics kernel")
+    log = _compile([nvcc, *NVCC_FLAGS, "physics_step.cu"], out)
+    return out, log
+
+
+def build_host_library(build_dir: str) -> str:
+    """Build the CPU library of the kernel body with g++ into build_dir."""
+    out = os.path.join(build_dir, f"libphysics_step_host_{sources_hash()}.so")
+    if not os.path.exists(out):
+        gxx = shutil.which("g++")
+        if gxx is None:
+            raise RuntimeError("g++ not found")
+        _compile([gxx, *HOST_FLAGS, "physics_step_host.cpp"], out)
+    return out
+
+
+def load_host_library(path: str):
+    lib = ctypes.CDLL(path)
+    fn = lib.rl_physics_step_host
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def pack_constants(model, sim_cfg, layout: LimbLayout) -> np.ndarray:
+    """Flat float32 table of the robot model and the solver constants.
+    Products of constants are formed in float64 and rounded once, as the
+    plain version forms them in python floats."""
+    D, K = layout.D, layout.K
+    if (D, K) not in LAYOUTS:
+        raise NotImplementedError(f"limb layout {D}x{K} is not compiled")
+    if model.ng > MAX_NG or model.nr > MAX_NR:
+        raise NotImplementedError(
+            f"ng={model.ng} / nr={model.nr} exceed {MAX_NG} / {MAX_NR}")
+    nsub = max(int(sim_cfg.num_substeps), 1)
+    dt = sim_cfg.dt / nsub
+    parent = np.asarray(model.parent)
+    t = np.zeros(HDR + BASE_SIZE + D * K * SLOT + model.ng * GEOM)
+    t[0:14] = [nsub, dt, 1.0 / dt, 0.5 * dt, float(sim_cfg.gravity[2]),
+               sim_cfg.erp / dt, sim_cfg.max_depenetration_velocity,
+               sim_cfg.bounce_threshold_velocity, sim_cfg.joint_friction,
+               float(getattr(sim_cfg, "torsional_patch_radius", 0.0)),
+               float(max(int(np.sum(parent == 0)), 1)),
+               float(model.mass[0]), model.ng, model.nr]
+    t[HDR:HDR + 3] = model.com[0]
+    t[HDR + 3:HDR + 12] = np.asarray(model.inertia[0]).reshape(-1)
+    slot_of_body = np.zeros(model.nb, np.int64)
+    for d in range(D):
+        for k in range(K):
+            s = d * K + k
+            b = int(layout.body_index[d, k])
+            j = b - 1
+            slot_of_body[b] = 1 + s
+            ax = np.asarray(model.axis[j], np.float64)
+            sk = np.array([[0.0, -ax[2], ax[1]], [ax[2], 0.0, -ax[0]],
+                           [-ax[1], ax[0], 0.0]])
+            o = HDR + BASE_SIZE + s * SLOT
+            t[o:o + 9] = np.asarray(model.E_tree[j]).reshape(-1)
+            t[o + 9:o + 12] = model.p_tree[j]
+            t[o + 12:o + 15] = ax
+            t[o + 15:o + 24] = (sk @ sk).reshape(-1)
+            t[o + 24:o + 60] = np_spatial_inertia(
+                float(model.mass[b]), np.asarray(model.com[b]),
+                np.asarray(model.inertia[b])).reshape(-1)
+            t[o + 60:o + 66] = [model.dof_armature[j], model.dof_damping[j],
+                                model.dof_lower[j], model.dof_upper[j],
+                                model.dof_velocity[j], j]
+            # the kernel takes the parent of level d > 0 to be level d - 1
+            # of the same limb, as detect_limbs builds the layout
+            if d > 0:
+                assert parent[b] == int(layout.body_index[d - 1, k])
+    go = HDR + BASE_SIZE + D * K * SLOT
+    for g in range(model.ng):
+        o = go + g * GEOM
+        t[o:o + 6] = [slot_of_body[int(model.geom_body[g])],
+                      model.geom_report_body[g], *model.geom_offset[g],
+                      model.geom_radius[g]]
+    return t.astype(np.float32)
+
+
+def pack_inputs(model, state: SimState, tau, params: PhysParams,
+                implicit_damp) -> torch.Tensor:
+    """[C_in, N] float32 channel-major input of the kernel."""
+    chans = [state.base_pos.T, state.base_quat.T, state.base_lin_vel.T,
+             state.base_ang_vel.T, state.q.T, state.qd.T, tau.T,
+             params.payload[None], params.com_displacement.T,
+             params.restitution[None],
+             # plane ground: static friction 1.0 (as physics_step_soa)
+             (0.5 * (params.friction + 1.0))[None]]
+    if implicit_damp is not None:
+        chans.append(implicit_damp.T)
+    return torch.cat(chans, dim=0).contiguous()
+
+
+def out_channels(model) -> int:
+    return 13 + 2 * model.nv + 3 * model.nr + 3 * model.ng
+
+
+def unpack_outputs(model, y: torch.Tensor) -> StepOutput:
+    nv, nr, ng = model.nv, model.nr, model.ng
+    N = y.shape[1]
+    parts = torch.split(y, [3, 4, 3, 3, nv, nv, 3 * nr, 3 * ng], dim=0)
+    state = SimState(*(p.T for p in parts[:6]))
+    report = parts[6].T.reshape(N, nr, 3)
+    geom_pos = parts[7].T.reshape(N, ng, 3)
+    return StepOutput(state, report, geom_pos)
+
+
+def _check_inputs(model, state, tau, params, implicit_damp, device):
+    N = state.q.shape[0]
+    want = {
+        "base_pos": (state.base_pos, (N, 3)),
+        "base_quat": (state.base_quat, (N, 4)),
+        "base_lin_vel": (state.base_lin_vel, (N, 3)),
+        "base_ang_vel": (state.base_ang_vel, (N, 3)),
+        "q": (state.q, (N, model.nv)),
+        "qd": (state.qd, (N, model.nv)),
+        "tau": (tau, (N, model.nv)),
+        "friction": (params.friction, (N,)),
+        "restitution": (params.restitution, (N,)),
+        "payload": (params.payload, (N,)),
+        "com_displacement": (params.com_displacement, (N, 3)),
+    }
+    if implicit_damp is not None:
+        want["implicit_damp"] = (implicit_damp, (N, model.nv))
+    for name, (t, shape) in want.items():
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, expected {device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} has dtype {t.dtype}, expected float32")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                             f"expected {shape}")
+    if N == 0:
+        raise ValueError("no envs")
+
+
+class PhysicsStepKernel:
+    """The built CUDA library, the constant tables, and the launch count.
+
+    ``launches`` grows by one at each kernel launch and nowhere else."""
+
+    def __init__(self):
+        self.launches = 0
+        self.build_log = ""
+        self.library_path = None
+        self._fn = None
+        self._tables = {}
+
+    def load(self):
+        """Build the library if needed and bind its C entry point."""
+        if self._fn is None:
+            path, log = build_cuda_library()
+            lib = ctypes.CDLL(path)
+            fn = lib.rl_physics_step
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                           ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            self._lib, self._fn = lib, fn
+            self.library_path, self.build_log = path, log
+        return self._fn
+
+    def table(self, model, sim_cfg, layout, device) -> torch.Tensor:
+        key = (id(model), device, sim_cfg.dt, sim_cfg.num_substeps,
+               tuple(sim_cfg.gravity), sim_cfg.erp,
+               sim_cfg.max_depenetration_velocity,
+               sim_cfg.bounce_threshold_velocity, sim_cfg.joint_friction,
+               getattr(sim_cfg, "torsional_patch_radius", 0.0))
+        hit = self._tables.get(key)
+        # the entry keeps the model alive, so its id cannot be reused
+        if hit is None or hit[0] is not model:
+            t = torch.from_numpy(pack_constants(model, sim_cfg, layout))
+            hit = (model, t.to(device))
+            self._tables[key] = hit
+        return hit[1]
+
+    def launch_packed(self, x: torch.Tensor, y: torch.Tensor,
+                      cst: torch.Tensor, layout: LimbLayout, has_imp: bool):
+        """Launch on packed [C_in, N] input and [C_out, N] output arrays on
+        the current stream; raises if the launch is refused."""
+        if (layout.D, layout.K) != CUDA_LAYOUT or not has_imp:
+            raise NotImplementedError(
+                f"the CUDA kernel is built for limb layout {CUDA_LAYOUT} with "
+                f"implicit damping given (zeros for none), not "
+                f"{layout.D}x{layout.K} with has_imp={has_imp}")
+        for t in (x, y, cst):
+            if (t.device.type != "cuda" or t.dtype != torch.float32
+                    or not t.is_contiguous()):
+                raise ValueError("kernel arrays must be contiguous float32 "
+                                 "CUDA tensors")
+        if x.dim() != 2 or y.dim() != 2 or x.shape[1] != y.shape[1]:
+            raise ValueError(f"input {tuple(x.shape)} and output "
+                             f"{tuple(y.shape)} disagree on the env count")
+        fn = self.load()
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(y.data_ptr()),
+                 ctypes.c_void_p(cst.data_ptr()), x.shape[1], layout.D,
+                 layout.K, int(has_imp), ctypes.c_void_p(stream))
+        if err != 0:
+            raise RuntimeError(f"physics kernel launch failed: cudaError {err}")
+        self.launches += 1
+
+    def __call__(self, model, sim_cfg, state, tau, params, implicit_damp,
+                 layout) -> StepOutput:
+        device = state.q.device
+        _check_inputs(model, state, tau, params, implicit_damp, device)
+        cst = self.table(model, sim_cfg, layout, device)
+        x = pack_inputs(model, state, tau, params, implicit_damp)
+        y = torch.empty((out_channels(model), x.shape[1]),
+                        dtype=torch.float32, device=device)
+        self.launch_packed(x, y, cst, layout, implicit_damp is not None)
+        return unpack_outputs(model, y)
+
+
+KERNEL = PhysicsStepKernel()
+
+
+def physics_step_cuda(
+    model,
+    sim_cfg,
+    state: SimState,               # batched [N,...]
+    tau: torch.Tensor,             # [N,nv]
+    params: PhysParams,            # batched
+    terrain=None,
+    fixed_base: bool = False,
+    implicit_damp: Optional[torch.Tensor] = None,   # [N,nv] Kd_eff+dt*Kp_eff
+    world_boxes=None,
+    env_origin: Optional[torch.Tensor] = None,
+    world_friction: float = 1.0,
+) -> StepOutput:
+    """One control-step physics call: the CUDA kernel for tensors on the
+    card, the plain version for tensors on the CPU."""
+    layout = check_supported(model, sim_cfg, fixed_base, terrain, world_boxes)
+    device = state.q.device
+    if device.type == "cpu":
+        return physics_step_soa(model, sim_cfg, state, tau, params,
+                                implicit_damp=implicit_damp)
+    if device.type != "cuda":
+        raise ValueError(f"no physics step for device {device}")
+    return KERNEL(model, sim_cfg, state, tau, params, implicit_damp, layout)
+
+
+def physics_step_host(lib, model, sim_cfg, state: SimState, tau,
+                      params: PhysParams,
+                      implicit_damp: Optional[torch.Tensor] = None
+                      ) -> StepOutput:
+    """The kernel's per-env body built for the CPU (``lib`` from
+    :func:`load_host_library`), on CPU tensors, through the same packing."""
+    layout = check_supported(model, sim_cfg)
+    _check_inputs(model, state, tau, params, implicit_damp,
+                  torch.device("cpu"))
+    cst = torch.from_numpy(pack_constants(model, sim_cfg, layout))
+    x = pack_inputs(model, state, tau, params, implicit_damp)
+    N = x.shape[1]
+    y = torch.empty((out_channels(model), N), dtype=torch.float32)
+    err = lib.rl_physics_step_host(
+        ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(y.data_ptr()),
+        ctypes.c_void_p(cst.data_ptr()), N, layout.D, layout.K,
+        int(implicit_damp is not None))
+    if err != 0:
+        raise RuntimeError(f"host physics step refused layout "
+                           f"{layout.D}x{layout.K}")
+    return unpack_outputs(model, y)

@@ -1,0 +1,140 @@
+"""The CUDA kernel's per-env body (csrc/substep_chain.cuh) built for the CPU
+with g++, against the port's plain physics step, through the same packing
+as the CUDA wrapper; and the kernel itself on a card (``gpu`` marker).
+
+Same arithmetic in the same order: flight and hopper states agree to the
+tolerances of tests/test_pallas_physics.py (2e-5 on state, 2e-4/2e-3 on
+contact reports, 1e-5 on geom positions); grounded Go1 states by the bulk
+rule of tests/test_soa_physics.py."""
+
+import re
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+from rapid_locomotion_rl_tpu_torch.config import SimCfg
+from rapid_locomotion_rl_tpu_torch.models import load_urdf
+from rapid_locomotion_rl_tpu_torch.ops import cuda_physics as CP
+from rapid_locomotion_rl_tpu_torch.ops.soa_physics import physics_step_soa
+from torch_port_helpers import (GO1, TINY, assert_step_close, physics_inputs,
+                                torch_inputs)
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ on this machine to build the kernel body")
+    path = CP.build_host_library(str(tmp_path_factory.mktemp("hostlib")))
+    return CP.load_host_library(path)
+
+
+@pytest.fixture(scope="module")
+def models(tmp_path_factory):
+    p = tmp_path_factory.mktemp("hopper") / "tiny.urdf"
+    p.write_text(TINY)
+    return {"hopper": load_urdf(str(p)), "go1": load_urdf(GO1)}
+
+
+@pytest.mark.parametrize("robot,kind,with_imp", [
+    ("hopper", "hopper", False),
+    ("hopper", "hopper", True),
+    ("go1", "flight", True),
+    ("go1", "ground", True),
+    ("go1", "ground", False),
+])
+def test_host_kernel_matches_plain(host_lib, models, robot, kind, with_imp):
+    model = models[robot]
+    n = 200 if robot == "hopper" else 64
+    state, params, tau, imp = torch_inputs(
+        *physics_inputs(model, n, 7, kind))
+    imp = imp if with_imp else None
+    ref = physics_step_soa(model, SimCfg(), state, tau, params,
+                           implicit_damp=imp)
+    out = CP.physics_step_host(host_lib, model, SimCfg(), state, tau, params,
+                               implicit_damp=imp)
+    if kind != "flight":
+        assert ref.contact_report.abs().max() > 0.0
+    assert_step_close(ref, out, kind)
+
+
+def test_constant_table_layout_matches_header():
+    """The offsets of ops/cuda_physics.py are the header's RL_* defines."""
+    src = open(f"{CP.CSRC_DIR}/substep_chain.cuh").read()
+    define = dict(re.findall(r"#define (RL_\w+) (\d+)", src))
+    assert int(define["RL_HDR"]) == CP.HDR
+    assert int(define["RL_BASE_SIZE"]) == CP.BASE_SIZE
+    assert int(define["RL_SLOT"]) == CP.SLOT
+    assert int(define["RL_GEOM"]) == CP.GEOM
+    assert int(define["RL_MAX_NG"]) == CP.MAX_NG
+    assert int(define["RL_MAX_NR"]) == CP.MAX_NR
+
+
+def test_pack_shapes_go1(models):
+    """Go1 with implicit PD: 67 input channels, 259 output channels."""
+    model = models["go1"]
+    state, params, tau, imp = torch_inputs(*physics_inputs(model, 5, 0,
+                                                           "ground"))
+    assert CP.pack_inputs(model, state, tau, params, imp).shape == (67, 5)
+    assert CP.pack_inputs(model, state, tau, params, None).shape == (55, 5)
+    assert CP.out_channels(model) == 259
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["flight", "ground"])
+def test_cuda_kernel_matches_plain(models, kind):
+    """Runs on a machine with a CUDA card (python -m pytest -m gpu)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    model = models["go1"]
+    state, params, tau, imp = torch_inputs(
+        *physics_inputs(model, 4096, 7, kind))
+    state = type(state)(*(t.cuda() for t in state))
+    params = type(params)(*(t.cuda() for t in params))
+    tau, imp = tau.cuda(), imp.cuda()
+    before = CP.KERNEL.launches
+    out = CP.physics_step_cuda(model, SimCfg(), state, tau, params,
+                               implicit_damp=imp)
+    torch.cuda.synchronize()
+    assert CP.KERNEL.launches == before + 1
+    ref = physics_step_soa(model, SimCfg(), state, tau, params,
+                           implicit_damp=imp)
+    to_np = lambda o: type(o)(type(o.state)(*(t.cpu() for t in o.state)),  # noqa: E731
+                              o.contact_report.cpu(), o.geom_pos.cpu())
+    assert_step_close(to_np(ref), to_np(out), kind)
+
+
+def test_cuda_wrapper_rejects_bad_inputs(models):
+    """The checks run before any build or launch."""
+    model = models["go1"]
+    state, params, tau, imp = torch_inputs(*physics_inputs(model, 4, 0,
+                                                           "ground"))
+    with pytest.raises(TypeError):
+        CP._check_inputs(model, state, tau.double(), params, imp,
+                         torch.device("cpu"))
+    with pytest.raises(ValueError):
+        CP._check_inputs(model, state, tau[:, :5], params, imp,
+                         torch.device("cpu"))
+    with pytest.raises(ValueError):
+        CP._check_inputs(model, state, tau, params, imp,
+                         torch.device("cuda"))
+
+
+@pytest.mark.parametrize("robot,with_imp", [("hopper", True),
+                                            ("go1", False)])
+def test_cuda_launch_refuses_variants_not_built(models, robot, with_imp):
+    """Only the quadruped layout with implicit damping is built for the
+    card; any other variant is refused before a build or a launch."""
+    model = models[robot]
+    state, params, tau, imp = torch_inputs(*physics_inputs(model, 4, 0,
+                                                           "ground"))
+    imp = imp if with_imp else None
+    layout = CP.check_supported(model, SimCfg())
+    x = CP.pack_inputs(model, state, tau, params, imp)
+    y = torch.empty((CP.out_channels(model), 4))
+    cst = torch.from_numpy(CP.pack_constants(model, SimCfg(), layout))
+    before = CP.KERNEL.launches
+    with pytest.raises(NotImplementedError):
+        CP.KERNEL.launch_packed(x, y, cst, layout, with_imp)
+    assert CP.KERNEL.launches == before

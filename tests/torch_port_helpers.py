@@ -1,0 +1,111 @@
+"""Shared inputs for the PyTorch-port parity tests: robot models of both
+packages, and physics inputs made with numpy from a seed."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from rapid_locomotion_rl_tpu import RLTPU_ROOT_DIR
+
+GO1 = f"{RLTPU_ROOT_DIR}/resources/robots/go1/urdf/go1.urdf"
+MC = f"{RLTPU_ROOT_DIR}/resources/robots/mini_cheetah/urdf/mini_cheetah.urdf"
+
+# the 2-limb hopper of tests/test_pallas_physics.py (nb=3, nv=2, ng=3)
+from test_pallas_physics import TINY  # noqa: E402,F401
+
+
+def physics_inputs(model, n, seed, kind):
+    """numpy inputs of one physics call.
+
+    kind "hopper": the state/param/torque draws of test_pallas_physics;
+    "flight": Go1-class robot high in the air, joints inside their limits,
+    zero torques; "ground": the same robot at standing height, random
+    torques (contacts on)."""
+    rng = np.random.default_rng(seed)
+    nv = model.nv
+    if kind == "hopper":
+        quat = rng.normal(size=(n, 4))
+        quat /= np.linalg.norm(quat, axis=-1, keepdims=True)
+        state = dict(
+            base_pos=np.concatenate([rng.uniform(-1, 1, (n, 2)),
+                                     rng.uniform(0.1, 0.3, (n, 1))], -1),
+            base_quat=quat,
+            base_lin_vel=rng.uniform(-1, 1, (n, 3)),
+            base_ang_vel=rng.uniform(-2, 2, (n, 3)),
+            q=rng.uniform(-0.6, 0.6, (n, nv)),
+            qd=rng.uniform(-3, 3, (n, nv)))
+        params = dict(friction=rng.uniform(0.3, 2.0, n),
+                      restitution=rng.uniform(0.0, 0.4, n),
+                      payload=rng.uniform(-0.5, 2.0, n),
+                      com_displacement=rng.uniform(-0.05, 0.05, (n, 3)))
+        tau = rng.uniform(-3, 3, (n, nv))
+    else:
+        airborne = kind == "flight"
+        lo, hi = np.asarray(model.dof_lower), np.asarray(model.dof_upper)
+        quat = rng.normal([0, 0, 0, 4.0], 0.3, (n, 4))
+        quat /= np.linalg.norm(quat, axis=-1, keepdims=True)
+        state = dict(
+            base_pos=rng.normal([0, 0, 1.5 if airborne else 0.30],
+                                [0.5, 0.5, 0.02], (n, 3)),
+            base_quat=quat,
+            base_lin_vel=rng.normal(0, 0.5, (n, 3)),
+            base_ang_vel=rng.normal(0, 0.5, (n, 3)),
+            q=lo + (hi - lo) * rng.uniform(0.1, 0.9, (n, nv)),
+            qd=rng.uniform(-4, 4, (n, nv)))
+        params = dict(friction=rng.uniform(0.1, 3.0, n),
+                      restitution=rng.uniform(0, 1, n),
+                      payload=rng.uniform(-1, 3, n),
+                      com_displacement=rng.uniform(-0.1, 0.1, (n, 3)))
+        tau = (np.zeros((n, nv)) if airborne
+               else rng.uniform(-3, 3, (n, nv)))
+    imp = rng.uniform(0.3, 3.0, (n, nv))
+    f32 = lambda d: {k: np.asarray(v, np.float32) for k, v in d.items()}  # noqa: E731
+    return (f32(state), f32(params), np.asarray(tau, np.float32),
+            np.asarray(imp, np.float32))
+
+
+def torch_inputs(state, params, tau, imp):
+    from rapid_locomotion_rl_tpu_torch.ops.dynamics import PhysParams, SimState
+    t = lambda a: torch.tensor(a)  # noqa: E731
+    return (SimState(**{k: t(v) for k, v in state.items()}),
+            PhysParams(**{k: t(v) for k, v in params.items()}),
+            t(tau), None if imp is None else t(imp))
+
+
+def mostly_close(a, b, atol, frac=0.80):
+    """Bulk rule of tests/test_soa_physics.py: states on a contact-branch
+    boundary flip on fp-level differences, so grounded states agree entry
+    by entry only in bulk (healthy levels there are 87-99%)."""
+    a, b = np.asarray(a), np.asarray(b)
+    ok = np.abs(a - b) <= atol + 1e-3 * np.abs(b)
+    assert ok.mean() >= frac, (ok.mean(), np.abs(a - b).max())
+
+
+STATE_FIELDS = ("base_pos", "base_quat", "base_lin_vel", "base_ang_vel",
+                "q", "qd")
+
+
+def assert_step_close(ref, out, kind):
+    """Compare two StepOutputs (numpy-convertible) at the tolerances of
+    tests/test_pallas_physics.py (strict: identical arithmetic, float
+    rounding only) or by the bulk rule (grounded random states)."""
+    if kind == "ground":
+        mostly_close(ref.state.q, out.state.q, 1e-3)
+        mostly_close(ref.state.qd, out.state.qd, 1e-2)
+        mostly_close(ref.state.base_pos, out.state.base_pos, 1e-3)
+        mostly_close(ref.state.base_lin_vel, out.state.base_lin_vel, 1e-2)
+        mostly_close(ref.contact_report, out.contact_report, 0.5)
+        np.testing.assert_allclose(np.asarray(out.geom_pos),
+                                   np.asarray(ref.geom_pos),
+                                   rtol=1e-5, atol=1e-5)
+        return
+    for name in STATE_FIELDS:
+        np.testing.assert_allclose(np.asarray(getattr(out.state, name)),
+                                   np.asarray(getattr(ref.state, name)),
+                                   rtol=2e-5, atol=2e-5, err_msg=name)
+    np.testing.assert_allclose(np.asarray(out.contact_report),
+                               np.asarray(ref.contact_report),
+                               rtol=2e-4, atol=2e-3)
+    np.testing.assert_allclose(np.asarray(out.geom_pos),
+                               np.asarray(ref.geom_pos), rtol=1e-5, atol=1e-5)
