@@ -7,21 +7,35 @@ Imports torch and the port (``rapid_locomotion_rl_tpu_torch``) only. Each
 phase prints one flushed line with the seconds elapsed; a failed phase
 raises and the script exits non-zero.
 
-1. device:  a CUDA card, its name and power limit (nvidia-smi).
-2. build:   nvcc builds the physics kernel from csrc/; ptxas's register,
-            spill and shared-memory lines.
-3. kernel:  the kernel against its plain PyTorch version on Go1 at 4096
-            envs, on states made from a numpy seed: torque-free flight at
-            rtol/atol 2e-5 on state and 1e-5 on geom positions; grounded
-            states with random torques: >= 99% of entries of every state
-            field and of the non-zero contact forces within atol +
-            1e-3 |ref|, geom positions at 1e-5; kernel and plain times by
-            CUDA events.
-4. rollout: the Go1 env (config_go1, 4096 envs) on the card with the
-            runs/r4_go1 policy weights; one PPO horizon (24 steps) of
-            teacher-policy rollout; outputs finite; the kernel launched
-            exactly 24 x decimation times; env-steps/s and peak memory.
-5. result:  the kernels line, the card line, and the contract line.
+1. device:   a CUDA card, its name and power limit (nvidia-smi).
+2. build:    nvcc builds the physics kernel (both variants the port runs:
+             the plane and terrain) from csrc/; ptxas's register, spill and
+             shared-memory lines.
+3. kernel:   the plane variant against its plain PyTorch version on Go1 at
+             4096 envs, on states made from a numpy seed: torque-free
+             flight at rtol/atol 2e-5 on state and 1e-5 on geom positions;
+             grounded states with random torques: >= 99% of entries of
+             every state field and of the non-zero contact forces within
+             atol + 1e-3 |ref|, geom positions at 1e-5; kernel and plain
+             times by CUDA events.
+4. terrain:  the terrain variant, the same way, on Mini Cheetah at 4000
+             envs spread over the default TerrainCfg mix (slopes, stairs,
+             obstacles; the flagship's own grid is flat), looked up through
+             the env's column-block window.
+5. rollout:  the Go1 env (config_go1, 4096 envs, plane) with the
+             runs/r4_go1 policy weights; one PPO horizon (24 steps) of
+             teacher-policy rollout; outputs finite; the plane variant
+             launched exactly 24 x decimation times; env-steps/s and peak
+             memory.
+6. flagship: config_mini_cheetah (4000 envs, trimesh) with the
+             runs/r5_flagship weights: 2 training iterations (24-step
+             rollout, GAE, 5 x 4 minibatches of PPO with the adaptive-KL
+             LR and the adaptation-module step); 96 terrain-variant
+             launches per iteration and no other; finite losses, KL, LR and
+             params, LR in [1e-5, max_lr], mean base z in (0.15, 0.5) m,
+             done rate under 5%; the rollout/update split, env-steps/s of
+             the iteration and peak memory.
+7. result:   the kernels line, the card line, and the contract line.
 """
 
 from __future__ import annotations
@@ -34,9 +48,13 @@ import time
 
 T0 = time.time()
 N_ENVS = 4096
+N_MC = 4000
 HORIZON = 24
+ITERATIONS = 2
 SEED = 0
 WEIGHTS = os.path.join("runs", "r4_go1", "checkpoints", "ac_weights_last.pkl")
+MC_WEIGHTS = os.path.join("runs", "r5_flagship", "checkpoints",
+                          "ac_weights_last.pkl")
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_FP32_OPS_PER_S = 67e12     # fp32 outside the tensor cores
 
@@ -79,14 +97,19 @@ def phase_build():
             say("build", "ptxas " + line.strip())
 
 
-def go1_model():
+def robot(config):
+    """A config and the robot model it loads."""
     from rapid_locomotion_rl_tpu_torch import ROOT_DIR
-    from rapid_locomotion_rl_tpu_torch.config import config_go1
     from rapid_locomotion_rl_tpu_torch.models import load_urdf
-    cfg = config_go1()
+    cfg = config()
     return cfg, load_urdf(cfg.asset.file.format(ROOT=ROOT_DIR),
                           armature=cfg.asset.armature,
                           mesh_sphere_fit=cfg.asset.mesh_sphere_fit)
+
+
+def go1_model():
+    from rapid_locomotion_rl_tpu_torch.config import config_go1
+    return robot(config_go1)
 
 
 def random_inputs(model, n, seed, airborne, dev):
@@ -121,13 +144,16 @@ def random_inputs(model, n, seed, airborne, dev):
     return state, tau, params, imp
 
 
-def count_ops_per_env(model, sim_cfg, n=8):
+def count_ops_per_env(model, sim_cfg, n=8, terrain=False):
     """Arithmetic operations per env of one physics call, counted from the
-    plain version on the CPU: every elementwise aten op adds its output's
-    element count (sin, sqrt, a comparison or a clamp count as one)."""
+    plain version's substep chain on the CPU (the kernel's work; with
+    ``terrain`` the per-geom heights and normals are inputs, as in the
+    kernel): every elementwise aten op adds its output's element count
+    (sin, sqrt, a comparison or a clamp count as one)."""
     import torch
     from torch.utils._python_dispatch import TorchDispatchMode
-    from rapid_locomotion_rl_tpu_torch.ops.soa_physics import physics_step_soa
+    from rapid_locomotion_rl_tpu_torch.ops.soa_physics import (
+        _v3, check_supported, substep_chain)
     skip = ("view", "select", "slice", "stack", "cat", "unbind", "detach",
             "alias", "_to_copy", "copy", "lift", "scalar_tensor", "expand",
             "unsqueeze", "squeeze", "t.", "transpose", "permute", "clone",
@@ -145,9 +171,24 @@ def count_ops_per_env(model, sim_cfg, n=8):
             return out
 
     state, tau, params, imp = random_inputs(model, n, 1, False, "cpu")
+    comps = dict(
+        base_pos=_v3(state.base_pos),
+        base_quat=tuple(state.base_quat[:, i] for i in range(4)),
+        base_v=_v3(state.base_lin_vel), base_w=_v3(state.base_ang_vel),
+        q=list(state.q.T), qd=list(state.qd.T), tau=list(tau.T),
+        imp=list(imp.T), payload=params.payload,
+        com_disp=_v3(params.com_displacement),
+        restitution=params.restitution, mu=0.5 * (params.friction + 1.0))
+    if terrain:
+        g = torch.Generator().manual_seed(2)
+        n3 = torch.nn.functional.normalize(
+            torch.randn(n, model.ng, 3, generator=g) * 0.1
+            + torch.tensor([0.0, 0.0, 1.0]), dim=-1)
+        comps["g_h"] = list(0.05 * torch.randn(model.ng, n, generator=g))
+        comps["g_n"] = [tuple(n3[:, i].T) for i in range(model.ng)]
+    layout = check_supported(model, sim_cfg)
     with Count():
-        physics_step_soa(model, sim_cfg, state, tau, params,
-                         implicit_damp=imp)
+        substep_chain(model, sim_cfg, layout, comps)
     return Count.ops / n
 
 
@@ -165,41 +206,48 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def mostly_close(name, a, b, atol, where=None):
+def mostly_close(phase, name, a, b, atol, where=None):
     """Bulk agreement: states on a contact-branch boundary flip on fp-level
     differences, so grounded states agree entry by entry only in bulk. The
     floor is 99% of entries within atol + 1e-3 |ref|: tighter than the 80%
-    of tests/test_soa_physics.py's bulk rule, and borne out on this seed
+    of tests/test_soa_physics.py's bulk rule, and borne out on these seeds
     (100% measured on the H100). ``where`` restricts the count to the
     entries it marks."""
     close = (a - b).abs() <= atol + 1e-3 * b.abs()
     if where is not None:
         close = close[where]
     ok = close.float().mean().item()
-    say("kernel", f"grounded {name}: {ok:.4f} of {close.numel()} within atol "
+    say(phase, f"grounded {name}: {ok:.4f} of {close.numel()} within atol "
         f"{atol} (max |err| {(a - b).abs().max().item():.3g})")
     if not ok >= 0.99:
         raise AssertionError(f"grounded {name}: only {ok:.4f} < 0.99 agree")
 
 
-def phase_kernel(dev):
+def hold_kernel(phase, model, sim, make_inputs, n, terrain=None,
+                window=None):
+    """The kernel against its plain version: torque-free flight strictly,
+    grounded states with random torques in bulk; then its time per launch,
+    the plain version's time per call, and the bound, at these shapes.
+    ``make_inputs(seed, airborne)`` gives (state, tau, params, imp);
+    ``window(state)`` the terrain window of the env's step."""
     import torch
     from rapid_locomotion_rl_tpu_torch.ops import cuda_physics as CP
     from rapid_locomotion_rl_tpu_torch.ops.soa_physics import physics_step_soa
-    cfg, model = go1_model()
-    sim = cfg.sim
     result = {}
 
+    def both(state, tau, params, imp):
+        kw = dict(terrain=terrain, implicit_damp=imp,
+                  terrain_window=None if window is None else window(state))
+        out_k = CP.physics_step_cuda(model, sim, state, tau, params, **kw)
+        torch.cuda.synchronize()
+        out_p = physics_step_soa(model, sim, state, tau, params, **kw)
+        torch.cuda.synchronize()
+        return out_k, out_p
+
     # torque-free flight: no contact, no limit hits -> tight agreement
-    state, tau, params, imp = random_inputs(model, N_ENVS, 3, True, dev)
-    out_k = CP.physics_step_cuda(model, sim, state, tau, params,
-                                 implicit_damp=imp)
-    torch.cuda.synchronize()
-    out_p = physics_step_soa(model, sim, state, tau, params,
-                             implicit_damp=imp)
-    torch.cuda.synchronize()
+    out_k, out_p = both(*make_inputs(3, True))
     err = 0.0
-    for name in state._fields:
+    for name in out_p.state._fields:
         a, b = getattr(out_k.state, name), getattr(out_p.state, name)
         if not torch.isfinite(a).all():
             raise AssertionError(f"flight {name}: non-finite kernel output")
@@ -210,50 +258,58 @@ def phase_kernel(dev):
                                atol=1e-5)
     if out_k.contact_report.abs().max().item() != 0.0:
         raise AssertionError("flight: contact force reported in the air")
-    say("kernel", f"flight N={N_ENVS}: state max |err| {err:.3g} "
+    say(phase, f"flight N={n}: state max |err| {err:.3g} "
         f"(rtol/atol 2e-5), geom_pos ok (1e-5)")
     result["max_abs_err"] = err
 
     # grounded states with random torques: bulk agreement
-    state, tau, params, imp = random_inputs(model, N_ENVS, 0, False, dev)
-    out_k = CP.physics_step_cuda(model, sim, state, tau, params,
-                                 implicit_damp=imp)
-    torch.cuda.synchronize()
-    out_p = physics_step_soa(model, sim, state, tau, params,
-                             implicit_damp=imp)
-    torch.cuda.synchronize()
+    state, tau, params, imp = make_inputs(0, False)
+    out_k, out_p = both(state, tau, params, imp)
     if out_p.contact_report.abs().max().item() < 1.0:
         raise AssertionError("grounded case has no contact")
     for name in state._fields:
         atol = 1e-2 if name in ("qd", "base_lin_vel", "base_ang_vel") else 1e-3
-        mostly_close(name, getattr(out_k.state, name),
+        mostly_close(phase, name, getattr(out_k.state, name),
                      getattr(out_p.state, name), atol)
     # most reported forces are zero on both sides: count the others only
-    mostly_close("contact_report", out_k.contact_report, out_p.contact_report,
-                 0.5, where=out_p.contact_report != 0)
+    mostly_close(phase, "contact_report", out_k.contact_report,
+                 out_p.contact_report, 0.5, where=out_p.contact_report != 0)
     # geom positions are taken before the contact solve: strict
     torch.testing.assert_close(out_k.geom_pos, out_p.geom_pos, rtol=1e-5,
                                atol=1e-5)
 
-    # times at the main path's shapes (grounded Go1, 4096 envs, imp on)
-    layout = CP.check_supported(model, sim)
-    cst = CP.KERNEL.table(model, sim, layout, dev)
-    x = CP.pack_inputs(model, state, tau, params, imp)
-    y = torch.empty((CP.out_channels(model), N_ENVS), device=dev)
+    # times at these shapes (grounded, implicit PD on)
+    layout = CP.check_supported(model, sim, terrain=terrain)
+    win = None if window is None else window(state)
+    gt = (None if terrain is None else CP.geom_terrain_at(
+        model, sim, layout, state, terrain, win))
+    if terrain is not None:
+        # contact happens on the terrain's slopes, not only on flat cells
+        on_slope = (gt[1][..., 2] < 0.999) & (
+            out_p.geom_pos[..., 2] - gt[0] < 0.05)
+        say(phase, f"grounded geoms within 5 cm of a sloped surface: "
+            f"{int(on_slope.sum())}")
+        if int(on_slope.sum()) == 0:
+            raise AssertionError("no geom near a sloped surface")
+    cst = CP.KERNEL.table(model, sim, layout, state.q.device)
+    x = CP.pack_inputs(model, state, tau, params, imp, terrain, gt)
+    y = torch.empty((CP.out_channels(model), n), device=state.q.device)
+    has_t = terrain is not None
     result["ms"] = time_ms(
-        lambda: CP.KERNEL.launch_packed(x, y, cst, layout, True), 50)
+        lambda: CP.KERNEL.launch_packed(x, y, cst, layout, True, has_t), 50)
     result["plain_ms"] = time_ms(
         lambda: physics_step_soa(model, sim, state, tau, params,
-                                 implicit_damp=imp), 2)
-    ops = count_ops_per_env(model, sim)
+                                 terrain=terrain, implicit_damp=imp,
+                                 terrain_window=win), 2)
+    ops = count_ops_per_env(model, sim, terrain=has_t)
     nbytes = (x.numel() + y.numel() + cst.numel()) * 4
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = ops * N_ENVS / H100_FP32_OPS_PER_S * 1e3
+    t_ops = ops * n / H100_FP32_OPS_PER_S * 1e3
     result.update(
         bound_ms=max(t_bytes, t_ops),
         bound_by="bytes" if t_bytes >= t_ops else "operations",
         ops_per_env=ops, bytes=nbytes, c_in=x.shape[0], c_out=y.shape[0])
-    say("kernel", f"times N={N_ENVS}: kernel {result['ms']:.4f} ms/launch, "
+    say(phase, f"times N={n}: kernel {result['ms']:.4f} ms/launch, "
         f"plain {result['plain_ms']:.1f} ms/call, bound "
         f"{result['bound_ms']:.4f} ms by {result['bound_by']} "
         f"({ops:.0f} ops/env, {nbytes} bytes, C_in {x.shape[0]}, "
@@ -261,27 +317,98 @@ def phase_kernel(dev):
     return result
 
 
+def phase_kernel(dev):
+    """The plane variant on Go1 at 4096 envs."""
+    cfg, model = go1_model()
+    return hold_kernel(
+        "kernel", model, cfg.sim,
+        lambda seed, air: random_inputs(model, N_ENVS, seed, air, dev),
+        N_ENVS)
+
+
+def phase_terrain(dev):
+    """The terrain variant on Mini Cheetah at 4000 envs over the default
+    TerrainCfg mix, looked up through the env's column-block window."""
+    import numpy as np
+    import torch
+    from rapid_locomotion_rl_tpu_torch.config import (TerrainCfg,
+                                                      config_mini_cheetah)
+    from rapid_locomotion_rl_tpu_torch.envs.terrain import Terrain
+    from rapid_locomotion_rl_tpu_torch.ops.contact import (
+        blocked_window, terrain_height_bilinear)
+    cfg, model = robot(config_mini_cheetah)
+    t = time.time()
+    tc = TerrainCfg()
+    terrain = Terrain(tc, N_MC, seed=SEED)
+    grid = terrain.as_collision_grid(
+        tc.static_friction, tc.dynamic_friction, tc.restitution,
+        upsample=tc.collision_upsample, slope_threshold=tc.slope_treshold,
+        device=dev)
+    say("terrain", f"default TerrainCfg mix {tc.num_rows} x {tc.num_cols} "
+        f"cells, collision grid {tuple(grid.height.shape)}, heights "
+        f"[{grid.height.min().item():.3f}, {grid.height.max().item():.3f}] m, "
+        f"built in {time.time() - t:.2f}s")
+    rng = np.random.default_rng(SEED)
+    xy = torch.tensor(np.stack([
+        rng.uniform(0.5, tc.num_rows * tc.terrain_length - 0.5, N_MC),
+        rng.uniform(0.5, tc.num_cols * tc.terrain_width - 0.5, N_MC)], -1),
+        dtype=torch.float32, device=dev)
+    under = terrain_height_bilinear(grid, xy[:, 0], xy[:, 1])
+
+    def make_inputs(seed, airborne):
+        state, tau, params, imp = random_inputs(model, N_MC, seed, airborne,
+                                                dev)
+        pos = torch.cat([xy, state.base_pos[:, 2:] + under[:, None]], -1)
+        return state._replace(base_pos=pos), tau, params, imp
+
+    return hold_kernel(
+        "terrain", model, cfg.sim, make_inputs, N_MC, terrain=grid,
+        window=lambda s: blocked_window(grid, s.base_pos[:, 0],
+                                        s.base_pos[:, 1]))
+
+
+def load_run(env, weights, dev):
+    """The policy of a training run (its parameters.json and weights) on
+    the card, and the run's PPO arguments."""
+    from rapid_locomotion_rl_tpu_torch.convert import params_from_flax
+    from rapid_locomotion_rl_tpu_torch.learn.ppo import PPOArgs
+    from rapid_locomotion_rl_tpu_torch.models.networks import ACArgs, ActorCritic
+    from rapid_locomotion_rl_tpu_torch.utils.checkpoint import load_pytree
+    with open(os.path.join(os.path.dirname(os.path.dirname(weights)),
+                           "parameters.json")) as f:
+        run = json.load(f)
+    ac = ActorCritic(env.num_obs, env.num_privileged_obs,
+                     env.num_obs_history, env.num_actions,
+                     ACArgs(**run["AC_Args"])).to(dev)
+    ac.load_state_dict(params_from_flax(load_pytree(weights)["params"]))
+    return ac, PPOArgs(**run.get("PPO_Args", {}))
+
+
+def zero_counts():
+    from rapid_locomotion_rl_tpu_torch.ops import cuda_physics as CP
+    CP.KERNEL.launches = CP.KERNEL.terrain_launches = 0
+
+
+def read_counts():
+    """(plane-variant launches, terrain-variant launches) since zero_counts."""
+    from rapid_locomotion_rl_tpu_torch.ops import cuda_physics as CP
+    return (CP.KERNEL.launches - CP.KERNEL.terrain_launches,
+            CP.KERNEL.terrain_launches)
+
+
 def phase_rollout(dev):
     import torch
-    from rapid_locomotion_rl_tpu_torch.convert import params_from_flax
     from rapid_locomotion_rl_tpu_torch.envs.legged_robot import LeggedRobotEnv
     from rapid_locomotion_rl_tpu_torch.learn.ppo import PPOArgs, rollout
-    from rapid_locomotion_rl_tpu_torch.models.networks import ACArgs, ActorCritic
     from rapid_locomotion_rl_tpu_torch.ops import cuda_physics as CP
     from rapid_locomotion_rl_tpu_torch.ops.dynamics import PhysParams
     from rapid_locomotion_rl_tpu_torch.sampler import Sampler
-    from rapid_locomotion_rl_tpu_torch.utils.checkpoint import load_pytree
     cfg, _ = go1_model()
     if cfg.env.num_envs != N_ENVS:
         raise AssertionError(f"config_go1 has {cfg.env.num_envs} envs")
     t = time.time()
     env = LeggedRobotEnv(cfg, device=dev)
-    with open(os.path.join(os.path.dirname(os.path.dirname(WEIGHTS)),
-                           "parameters.json")) as f:
-        ac_args = ACArgs(**json.load(f)["AC_Args"])
-    ac = ActorCritic(env.num_obs, env.num_privileged_obs,
-                     env.num_obs_history, env.num_actions, ac_args).to(dev)
-    ac.load_state_dict(params_from_flax(load_pytree(WEIGHTS)["params"]))
+    ac, _ = load_run(env, WEIGHTS, dev)
     sampler = Sampler(SEED, dev)
     state = env.initial_state(sampler)
     torch.cuda.synchronize()
@@ -291,15 +418,16 @@ def phase_rollout(dev):
 
     # the main path: one PPO horizon through the kernel
     torch.cuda.reset_peak_memory_stats()
-    CP.KERNEL.launches = 0
+    zero_counts()
     t = time.time()
     state, traj, info = rollout(env, ac, PPOArgs(), state, sampler, HORIZON)
     torch.cuda.synchronize()
     wall = time.time() - t
-    launches = CP.KERNEL.launches
+    launches, t_launches = read_counts()
     want = HORIZON * cfg.control.decimation
-    if launches != want:
-        raise AssertionError(f"kernel launched {launches} times, want {want}")
+    if launches != want or t_launches != 0:
+        raise AssertionError(f"plane variant launched {launches} times, "
+                             f"terrain variant {t_launches}; want {want}, 0")
     for name, v in list(traj._asdict().items()) + list(info.items()) + \
             list(state.sim._asdict().items()):
         if v.is_floating_point() and not torch.isfinite(v).all():
@@ -342,25 +470,131 @@ def phase_rollout(dev):
                 kernel_ms_rollout=k_ms, peak_bytes=peak)
 
 
+def phase_flagship(dev):
+    """The flagship training iteration: config_mini_cheetah at 4000 envs on
+    its trimesh terrain, from the runs/r5_flagship policy (fresh Adam
+    states), ITERATIONS iterations."""
+    import numpy as np
+    import torch
+    from rapid_locomotion_rl_tpu_torch.config import config_mini_cheetah
+    from rapid_locomotion_rl_tpu_torch.envs.legged_robot import LeggedRobotEnv
+    from rapid_locomotion_rl_tpu_torch.learn.ppo import (init_ppo_state,
+                                                         train_iteration)
+    from rapid_locomotion_rl_tpu_torch.ops import cuda_physics as CP
+    from rapid_locomotion_rl_tpu_torch.ops.dynamics import PhysParams
+    from rapid_locomotion_rl_tpu_torch.sampler import Sampler
+    cfg = config_mini_cheetah()
+    if cfg.env.num_envs != N_MC or cfg.terrain.mesh_type != "trimesh":
+        raise AssertionError("config_mini_cheetah is not the flagship")
+    t = time.time()
+    env = LeggedRobotEnv(cfg, device=dev)
+    ac, ppo_args = load_run(env, MC_WEIGHTS, dev)
+    sampler = Sampler(SEED, dev)
+    state = env.initial_state(sampler)
+    ppo_state = init_ppo_state(ac, ppo_args)
+    torch.cuda.synchronize()
+    grid = env.collision_grid
+    say("flagship", f"Mini Cheetah env ({env.num_envs} envs, nv="
+        f"{env.model.nv}, ng={env.model.ng}, nr={env.model.nr}), collision "
+        f"grid {tuple(grid.height.shape)} "
+        f"({grid.height.numel() * 4 / 2**20:.1f} MiB), and {MC_WEIGHTS} "
+        f"loaded in {time.time() - t:.2f}s")
+
+    per_iter = HORIZON * cfg.control.decimation
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    runs = []
+    for it in range(ITERATIONS):
+        timings = {}
+        before = read_counts()
+        state, ppo_state, m = train_iteration(
+            env, ac, ppo_args, state, ppo_state, sampler,
+            entropy_coef=ppo_args.entropy_coef, num_steps=HORIZON,
+            timings=timings)
+        after = read_counts()
+        plane, terr = after[0] - before[0], after[1] - before[1]
+        if plane != 0 or terr != per_iter:
+            raise AssertionError(f"iteration {it}: terrain variant launched "
+                                 f"{terr} times, plane variant {plane}; want "
+                                 f"{per_iter}, 0")
+        for k in ("mean_value_loss", "mean_surrogate_loss",
+                  "mean_adaptation_loss", "kl", "lr", "mean_reward"):
+            if not torch.isfinite(m[k]).all():
+                raise AssertionError(f"iteration {it}: {k} is not finite")
+        if not all(torch.isfinite(p).all() for p in ac.parameters()):
+            raise AssertionError(f"iteration {it}: non-finite parameters")
+        if not float(np.float32(1e-5)) <= ppo_state.lr <= ppo_args.max_lr:
+            raise AssertionError(f"iteration {it}: lr {ppo_state.lr}")
+        z = state.sim.base_pos[:, 2].mean().item()
+        done = m["mean_episode_dones"].item()
+        if not (0.15 < z < 0.5 and done < 0.05):
+            raise AssertionError(f"robots fell: mean base z {z:.3f}, "
+                                 f"done rate {done:.4f}")
+        total = timings["rollout_s"] + timings["update_s"]
+        runs.append(dict(timings, total_s=total,
+                         env_steps_per_s=HORIZON * N_MC / total))
+        say("flagship", f"iteration {it}: {terr} terrain-variant launches; "
+            f"rollout {timings['rollout_s']:.3f}s, update "
+            f"{timings['update_s']:.3f}s ({timings['update_s'] / total:.1%}"
+            f" of {total:.3f}s), {HORIZON * N_MC / total:.0f} env-steps/s; "
+            f"value loss {m['mean_value_loss'].item():.4g}, surrogate "
+            f"{m['mean_surrogate_loss'].item():.4g}, adaptation "
+            f"{m['mean_adaptation_loss'].item():.4g}, kl "
+            f"{m['kl'].item():.4g}, lr {ppo_state.lr:.3g}, mean reward "
+            f"{m['mean_reward'].item():.5f}, base z {z:.3f} m, done rate "
+            f"{done:.4f}")
+    launches = read_counts()[1]
+    peak = torch.cuda.max_memory_allocated()
+
+    # the terrain variant alone on the flagship's own state and window
+    layout = CP.check_supported(env.model, cfg.sim, terrain=grid)
+    dr = state.dr
+    imp = (env.d_gains * dr.Kd_factors + env._dt_sub * env.p_gains
+           * dr.Kp_factors) * dr.motor_strengths
+    win = env._window(grid, state.sim.base_pos[:, 0], state.sim.base_pos[:, 1])
+    gt = CP.geom_terrain_at(env.model, cfg.sim, layout, state.sim, grid, win)
+    x = CP.pack_inputs(env.model, state.sim, state.torques, PhysParams(
+        dr.friction, dr.restitution, dr.payloads, dr.com_displacements), imp,
+        grid, gt)
+    y = torch.empty((CP.out_channels(env.model), N_MC), device=dev)
+    cst = CP.KERNEL.table(env.model, cfg.sim, layout, dev)
+    k_ms = time_ms(
+        lambda: CP.KERNEL.launch_packed(x, y, cst, layout, True, True), 50)
+    last = runs[-1]
+    step_ms = last["rollout_s"] / HORIZON * 1e3
+    say("flagship", f"steady iteration: {last['env_steps_per_s']:.0f} "
+        f"env-steps/s, rollout {last['rollout_s']:.3f}s "
+        f"({step_ms:.1f} ms/env step), update {last['update_s']:.3f}s; "
+        f"kernel {k_ms:.4f} ms/launch on the flagship state "
+        f"({k_ms * cfg.control.decimation / step_ms * 100:.1f}% of an env "
+        f"step); peak memory {peak / 2**20:.1f} MiB | {card_line()}")
+    return dict(launches=launches, kernel_ms_flagship=k_ms, peak_bytes=peak,
+                iterations=runs)
+
+
 def main() -> int:
     dev = phase_device()
     phase_build()
     k1 = phase_kernel(dev)
+    kt = phase_terrain(dev)
     ro = phase_rollout(dev)
+    fl = phase_flagship(dev)
     say("result", "all phases passed")
     kernels = [{
-        "name": "physics_step",
+        "name": name,
         "route": "cuda",
         "source": "rapid_locomotion_rl_tpu_torch/csrc/physics_step.cu",
         "replaces": "rapid_locomotion_rl_tpu/ops/pallas_physics.py:61",
-        "launches": ro["launches"],
-        "max_abs_err": k1["max_abs_err"],
-        "ms": k1["ms"],
-        "plain_ms": k1["plain_ms"],
-        "bound_ms": k1["bound_ms"],
-        "bound_by": k1["bound_by"],
+        "launches": launches,
+        "max_abs_err": k["max_abs_err"],
+        "ms": k["ms"],
+        "plain_ms": k["plain_ms"],
+        "bound_ms": k["bound_ms"],
+        "bound_by": k["bound_by"],
         "library_ms": None,
-    }]
+    } for name, k, launches in (("physics_step", k1, ro["launches"]),
+                                ("physics_step_terrain", kt,
+                                 fl["launches"]))]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     import torch

@@ -3,23 +3,30 @@
 // without a GPU (g++ -O2 -shared -fPIC -ffp-contract=off).
 #include "substep_chain.cuh"
 
-template <int D, int K, bool IMP>
+template <int D, int K, bool IMP, bool TER>
 static void run_all(const float* x, float* y, const float* cst, int n) {
-  for (int i = 0; i < n; ++i) rl::Chain<D, K, IMP>::run(x, y, cst, n, i);
+  for (int i = 0; i < n; ++i) rl::Chain<D, K, IMP, TER>::run(x, y, cst, n, i);
+}
+
+template <int D, int K>
+static void run_layout(const float* x, float* y, const float* cst, int n,
+                       int has_imp, int has_terrain) {
+  if (has_imp && has_terrain) run_all<D, K, true, true>(x, y, cst, n);
+  else if (has_imp) run_all<D, K, true, false>(x, y, cst, n);
+  else if (has_terrain) run_all<D, K, false, true>(x, y, cst, n);
+  else run_all<D, K, false, false>(x, y, cst, n);
 }
 
 // Returns 0, or 1 for a limb layout that is not compiled.
 extern "C" int rl_physics_step_host(const float* x, float* y,
                                     const float* cst, int n, int D, int K,
-                                    int has_imp) {
+                                    int has_imp, int has_terrain) {
   if (D == 3 && K == 4) {
-    if (has_imp) run_all<3, 4, true>(x, y, cst, n);
-    else run_all<3, 4, false>(x, y, cst, n);
+    run_layout<3, 4>(x, y, cst, n, has_imp, has_terrain);
     return 0;
   }
   if (D == 1 && K == 2) {
-    if (has_imp) run_all<1, 2, true>(x, y, cst, n);
-    else run_all<1, 2, false>(x, y, cst, n);
+    run_layout<1, 2>(x, y, cst, n, has_imp, has_terrain);
     return 0;
   }
   return 1;

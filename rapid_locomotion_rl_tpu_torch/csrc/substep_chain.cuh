@@ -2,7 +2,9 @@
 // kinematics, joint torques, the limb-ABA articulated inertias, the per-geom
 // inverse apparent inertia (once per call), the TGS-style contact solve with
 // friction cone and torsional stiction, the bias sweep, the 6x6 Cholesky base
-// acceleration and semi-implicit Euler, on the plane z=0.
+// acceleration and semi-implicit Euler, on the plane z=0 or on terrain: with
+// TER the input holds each geom's terrain height and unit normal, sampled
+// outside the kernel once per call (ops/soa_physics.py::sample_geom_terrain).
 //
 // It computes what ops/soa_physics.py::substep_chain computes, operation for
 // operation and in the same order, for ONE env. The same source builds under
@@ -13,8 +15,9 @@
 // that neighbouring threads (envs) read neighbouring addresses. The robot
 // model is a flat float32 table `cst` packed once per model by
 // ops/cuda_physics.py::pack_constants; its layout is the RL_* offsets below.
-// Only the limb layout (D levels x K limbs) and the implicit-PD switch are
-// compile-time constants; loops over bodies and geoms run at run time.
+// Only the limb layout (D levels x K limbs), the implicit-PD switch and the
+// terrain switch are compile-time constants; loops over bodies and geoms run
+// at run time.
 #pragma once
 
 #include <math.h>
@@ -361,10 +364,11 @@ RL_HD SM inv_psd6(const SM& M) {
 }
 
 // ---- the per-env chain ----------------------------------------------------
-template <int D, int K, bool IMP>
+template <int D, int K, bool IMP, bool TER>
 struct Chain {
   static constexpr int NL = D * K;       // limb bodies = joints
   static constexpr int NB = NL + 1;      // + base
+  static constexpr int TNG = TER ? RL_MAX_NG : 1;  // terrain geom slots
 
   // slot of the parent of limb slot l (chains hang off the base)
   static RL_HD int parent_slot(int l) { return l < K ? 0 : 1 + (l - K); }
@@ -450,6 +454,23 @@ struct Chain {
     const V3 com_disp = v3(RL_X(cp + 1), RL_X(cp + 2), RL_X(cp + 3));
     const float restitution = RL_X(cp + 4);
     const float mu = RL_X(cp + 5);
+
+    // terrain under each geom, in the channel order of the TPU kernel: ng
+    // heights, then ng normals (x, y, z per geom); read once per call
+    float g_h[TNG];
+    V3 g_n[TNG];
+    if constexpr (TER) {
+      const int ct = cp + 6 + (IMP ? NL : 0);
+#pragma unroll 1
+      for (int g = 0; g < ng; ++g) {
+        g_h[g] = RL_X(ct + g);
+        g_n[g] = v3(RL_X(ct + ng + 3 * g), RL_X(ct + ng + 3 * g + 1),
+                    RL_X(ct + ng + 3 * g + 2));
+      }
+    } else {
+      g_h[0] = 0.0f;
+      g_n[0] = v3(0.0f, 0.0f, 1.0f);  // the plane z=0
+    }
 
     // ---- per-body scratch ---------------------------------------------------
     M3 R_b[NB], E_up[NB];
@@ -577,7 +598,8 @@ struct Chain {
         const float* cg = cgeom + g * RL_GEOM;
         const int b = (int)cg[RL_G_SLOT];
         const V3 pg = v3_add(m3_vec(R_b[b], v3_load(cg + RL_G_OFF)), p_b[b]);
-        n_active[b] += (cg[RL_G_RAD] - pg.v[2] > 0.0f) ? 1.0f : 0.0f;
+        const float h = TER ? g_h[g] : g_h[0];
+        n_active[b] += (h + cg[RL_G_RAD] - pg.v[2] > 0.0f) ? 1.0f : 0.0f;
       }
       if (sub == 0) {
 #pragma unroll 1
@@ -588,12 +610,13 @@ struct Chain {
       V3 Fw[NB], Nw[NB];
 #pragma unroll 1
       for (int b = 0; b < NB; ++b) { Fw[b] = v3_zero(); Nw[b] = v3_zero(); }
-      const V3 nrm = v3(0.0f, 0.0f, 1.0f);  // plane normal
 #pragma unroll 1
       for (int g = 0; g < ng; ++g) {
         const float* cg = cgeom + g * RL_GEOM;
         const int b = (int)cg[RL_G_SLOT];
         const float rad = cg[RL_G_RAD];
+        const float h = TER ? g_h[g] : g_h[0];
+        const V3 nrm = TER ? g_n[g] : g_n[0];
         const V3 pg = v3_add(m3_vec(R_b[b], v3_load(cg + RL_G_OFF)), p_b[b]);
         const V3 vg = v3_add(v_b[b], v3_cross(w_b[b], v3_sub(pg, p_b[b])));
         if (sub == 0) {
@@ -601,7 +624,7 @@ struct Chain {
           RL_Y(off_gpos + 3 * g + 1) = pg.v[1];
           RL_Y(off_gpos + 3 * g + 2) = pg.v[2];
         }
-        const float in_c = (rad - pg.v[2] > 0.0f) ? 1.0f : 0.0f;
+        const float in_c = (h + rad - pg.v[2] > 0.0f) ? 1.0f : 0.0f;
         // contact point on the sphere surface
         const V3 p_c = v3_sub(pg, v3_scale(nrm, rad));
         const V3 r_w = v3_sub(p_c, p_b[b]);
@@ -619,7 +642,7 @@ struct Chain {
                                v3_cross(w_b[b], v3_cross(w_b[b], r_w)));
 
         // TGS-style velocity constraint solve against lam_w[g]
-        const float depth = fmaxf(rad - pg.v[2], 0.0f);
+        const float depth = fmaxf(h + rad - pg.v[2], 0.0f);
         const V3 v_pred = v3_add(v_c, v3_scale(a_pt, dt));
         const float v_n_now = v3_dot(v_c, nrm);
         const float bias = fminf(erp_dt * depth, max_depen);

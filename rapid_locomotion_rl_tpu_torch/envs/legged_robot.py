@@ -1,5 +1,5 @@
 """The vectorized legged-robot velocity-tracking task (port of the JAX
-package's ``envs/legged_robot.py``, plane path).
+package's ``envs/legged_robot.py``).
 
 ``env.step(state, actions, sampler) -> (state', StepResult)`` over an
 :class:`EnvState` of batched tensors on the env's device. Resets are masked
@@ -10,9 +10,12 @@ times; command resampling and the grid-adaptive curriculum run on the
 device. Every random draw goes through the :class:`..sampler.Sampler`
 under a stream name.
 
-This slice ports the plane path. Terrain meshes (heightfield, trimesh, and
-with them height sensing, edge teleports and the terrain curriculum), world
-obstacles and MJCF assets raise ``NotImplementedError``.
+Terrain: the plane, or a heightfield/trimesh grid from
+:class:`.terrain.Terrain` with custom env origins, the spawn ranges around
+them, a per-step window into the collision grid that every physics call of
+the step looks up through, the edge teleport and the terrain curriculum.
+Height sensing on a mesh, world obstacles and MJCF assets raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -26,10 +29,12 @@ from .. import ROOT_DIR
 from ..config import Cfg, Derived, derive
 from ..models import RobotModel, load_urdf
 from ..ops import quat as Q
+from ..ops.contact import TerrainGrid, blocked_window, square_window
 from ..ops.cuda_physics import physics_step_cuda
 from ..ops.dynamics import PhysParams, SimState
 from . import curriculum as curr
 from . import rewards as R
+from .terrain import Terrain
 
 
 def get_scale_shift(rng):
@@ -112,9 +117,9 @@ class LeggedRobotEnv:
         self.num_eval_envs = self.derived.num_eval_envs
         self.dt = self.derived.dt
 
-        if cfg.terrain.mesh_type not in ("plane", "none"):
-            raise NotImplementedError(
-                f"terrain mesh '{cfg.terrain.mesh_type}' is not ported yet")
+        if cfg.terrain.mesh_type not in ("plane", "none", "heightfield",
+                                         "trimesh"):
+            raise ValueError(f"unknown terrain mesh {cfg.terrain.mesh_type}")
         if cfg.world.enabled:
             raise NotImplementedError("world obstacles are not ported yet")
         asset_path = cfg.asset.file.format(ROOT=ROOT_DIR)
@@ -170,8 +175,30 @@ class LeggedRobotEnv:
         self.dof_pos_limits = t(
             np.stack([mid - 0.5 * rng_ * soft, mid + 0.5 * rng_ * soft], -1))
 
-        # ---- terrain: plane only ---------------------------------------
-        self.custom_origins = False
+        # ---- terrain ----------------------------------------------------
+        tc = cfg.terrain
+        self.custom_origins = tc.mesh_type in ("heightfield", "trimesh")
+        self.collision_grid: Optional[TerrainGrid] = None
+        self._window = None
+        if self.custom_origins:
+            if tc.measure_heights:
+                raise NotImplementedError(
+                    "height sensing on a terrain mesh is not ported yet")
+            self.terrain = Terrain(tc, self.num_train_envs, None,
+                                   self.num_eval_envs, seed=cfg.seed)
+            if tc.mesh_type == "trimesh":
+                # contact collides the slope-corrected surface: steep faces
+                # are walls, as on the reference's trimesh
+                self.collision_grid = self.terrain.as_collision_grid(
+                    tc.static_friction, tc.dynamic_friction, tc.restitution,
+                    upsample=getattr(tc, "collision_upsample", 1),
+                    slope_threshold=tc.slope_treshold, device=self.device)
+            else:
+                self.collision_grid = self.terrain.as_grid(
+                    tc.static_friction, tc.dynamic_friction, tc.restitution,
+                    device=self.device)
+            self.terrain_origins = self._t(tc.env_origins)  # [rows,cols,3]
+            self._window = self._window_rule()
         if cfg.terrain.measure_heights:
             gx, gy = np.meshgrid(np.asarray(cfg.terrain.measured_points_x),
                                  np.asarray(cfg.terrain.measured_points_y),
@@ -212,6 +239,32 @@ class LeggedRobotEnv:
     def _t(self, x) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x, np.float32), device=self.device)
 
+    def _origin_of(self, levels, types):
+        """Origins of cells (level, type); indices past the last row or
+        column take the last, as the JAX package's gather clamps them."""
+        rows, cols = self.terrain_origins.shape[:2]
+        return self.terrain_origins[levels.long().clamp(0, rows - 1),
+                                    types.long().clamp(0, cols - 1)]
+
+    def _window_rule(self):
+        """How each env step places the window that its physics calls look
+        the terrain up through, as the JAX env hoists its patch: a 32 x 128
+        column block when the grid is at least that large (and the lookup
+        is the einsum form), else a square of terrain_patch_size + 8 cells
+        when the grid holds one, else none (each call then centers a
+        terrain_patch_size square on its own entry state)."""
+        sim = self.cfg.sim
+        P = int(getattr(sim, "terrain_patch_size", 0) or 0)
+        rows, cols = self.collision_grid.height.shape
+        if P <= 0:
+            return None
+        if (getattr(sim, "terrain_lookup", "mm") == "mm" and rows >= 32
+                and cols >= 128):
+            return blocked_window
+        if min(rows, cols) >= P + 8:
+            return lambda g, x, y: square_window(g, x, y, P + 8)
+        return None
+
     # ------------------------------------------------------------------
     def _make_noise_vec(self) -> np.ndarray:
         """Per-observation noise scales (reference `_get_noise_scale_vec`)."""
@@ -250,9 +303,24 @@ class LeggedRobotEnv:
     # ------------------------------------------------------------------
     # initial state
     # ------------------------------------------------------------------
-    def _env_origins(self):
-        """Plane env origins on a square grid (reference `_get_env_origins`)."""
+    def _env_origins(self, sampler):
+        """Env origins (reference `_get_env_origins`): on a terrain mesh the
+        origin of a cell (level row, type column), the levels drawn and the
+        types spread evenly over the columns; on the plane a square grid."""
         N = self.num_envs
+        tc = self.cfg.terrain
+        if self.custom_origins:
+            min_lvl, max_lvl = (tc.min_init_terrain_level,
+                                tc.max_init_terrain_level)
+            if not tc.curriculum:
+                min_lvl, max_lvl = 0, tc.num_rows - 1
+            levels = sampler.integers("terrain/init_levels", (N,), min_lvl,
+                                      max_lvl + 1).to(torch.int32)
+            types = np.floor_divide(np.arange(N, dtype=np.float32),
+                                    np.float32(max(N / tc.num_cols, 1)))
+            types = torch.as_tensor(types.astype(np.int32) % tc.num_cols,
+                                    device=self.device)
+            return self._origin_of(levels, types), levels, types
         spacing = self.cfg.env.env_spacing
         cols = int(np.floor(np.sqrt(N)))
         rows = int(np.ceil(N / cols))
@@ -304,7 +372,7 @@ class LeggedRobotEnv:
         N = self.num_envs
         cfg = self.cfg
         dev = self.device
-        origins, levels, types = self._env_origins()
+        origins, levels, types = self._env_origins(sampler)
         friction, restitution, payload, com = \
             self._sample_rigid_body_props(sampler, N, "init_rigid_props")
         motor, kpf, kdf = self._sample_dof_props(sampler, N, "init_dof_props")
@@ -359,6 +427,15 @@ class LeggedRobotEnv:
         cfg = self.cfg
         dev = self.device
         base_pos = self._t(cfg.init_state.pos) + origins
+        if self.custom_origins:
+            tc = cfg.terrain
+            xy = torch.stack(
+                [sampler.uniform(f"{stream}/x_init", (N,), -tc.x_init_range,
+                                 tc.x_init_range) + tc.x_init_offset,
+                 sampler.uniform(f"{stream}/y_init", (N,), -tc.y_init_range,
+                                 tc.y_init_range) + tc.y_init_offset], dim=-1)
+            base_pos = torch.cat([base_pos[:, :2] + xy, base_pos[:, 2:]],
+                                 dim=-1)
         base_quat = self._t(cfg.init_state.rot).expand(N, 4)
         lo, hi = cfg.init_state.dof_init_range
         q = self.default_dof_pos * sampler.uniform(
@@ -484,10 +561,31 @@ class LeggedRobotEnv:
         return torch.cat([cmds[:, :2] * keep.to(cmds.dtype), cmds[:, 2:]],
                          dim=-1)
 
-    def _phys(self, sim, torques, phys_params, imp):
+    def _phys(self, sim, torques, phys_params, imp, window):
         return physics_step_cuda(
             self.model, self.cfg.sim, sim, torques, phys_params,
-            fixed_base=self.cfg.asset.fix_base_link, implicit_damp=imp)
+            terrain=self.collision_grid,
+            fixed_base=self.cfg.asset.fix_base_link, implicit_damp=imp,
+            terrain_window=window)
+
+    def _teleport(self, sim: SimState) -> SimState:
+        """Edge teleport (reference legged_robot.py:768-791): a robot within
+        teleport_thresh of the terrain's edge moves one span back in."""
+        tc = self.cfg.terrain
+        thresh = tc.teleport_thresh
+        x_off = int(getattr(tc, "x_offset", 0) * tc.horizontal_scale)
+        span_x = tc.terrain_length * (tc.num_rows - 1)
+        span_y = tc.terrain_width * (tc.num_cols - 1)
+        x = sim.base_pos[:, 0]
+        y = sim.base_pos[:, 1]
+        x = torch.where(x < thresh + x_off, x + span_x, x)
+        x = torch.where(x > tc.terrain_length * tc.num_rows - thresh + x_off,
+                        x - span_x, x)
+        y = torch.where(y < thresh, y + span_y, y)
+        y = torch.where(y > tc.terrain_width * tc.num_cols - thresh,
+                        y - span_y, y)
+        return sim._replace(base_pos=torch.stack(
+            [x, y, sim.base_pos[:, 2]], dim=-1))
 
     def _context(self, sim, measured_heights, report, torques, actions,
                  last_actions, last_dof_vel, commands, rew_air, reset_buf,
@@ -559,10 +657,16 @@ class LeggedRobotEnv:
         else:
             imp = torch.zeros((N, self.num_dof), device=dev)
 
+        # the window of the terrain grid that this step's physics calls
+        # look up through, placed once at the step's entry base position
+        # (+8 cells of the square's slack cover the base's drift)
+        window = (None if self._window is None else self._window(
+            self.collision_grid, sim.base_pos[:, 0], sim.base_pos[:, 1]))
+
         for _ in range(cfg.control.decimation):
             torques, target = self._compute_torques(
                 actions, sim, state.dr, last_dof_vel=state.last_dof_vel)
-            out = self._phys(sim, torques, phys_params, imp)
+            out = self._phys(sim, torques, phys_params, imp, window)
             sim, report = out.state, out.contact_report
 
         episode_length = state.episode_length + 1
@@ -570,6 +674,10 @@ class LeggedRobotEnv:
 
         base_lin_vel = Q.quat_rotate_inverse(sim.base_quat, sim.base_lin_vel)
         base_ang_vel = Q.quat_rotate_inverse(sim.base_quat, sim.base_ang_vel)
+
+        # ---- teleport ------------------------------------------------------
+        if cfg.terrain.teleport_robots and self.custom_origins:
+            sim = self._teleport(sim)
 
         # ---- push robots --------------------------------------------------
         if cfg.domain_rand.push_robots:
@@ -589,7 +697,7 @@ class LeggedRobotEnv:
             Kp_factors=_w(rand_mask, kpf, dr.Kp_factors),
             Kd_factors=_w(rand_mask, kdf, dr.Kd_factors))
 
-        # ---- height sensing: the plane is at z=0 ---------------------------
+        # ---- height sensing: only the plane (heights 0) is ported ----------
         measured_heights = state.measured_heights
 
         # ---- termination --------------------------------------------------
@@ -687,9 +795,28 @@ class LeggedRobotEnv:
         for k in command_sums:
             command_sums[k] = _w(resample_mask, 0.0, command_sums[k])
 
-        # ---- episode metric flush as masked reductions ----------------------
+        # ---- terrain curriculum ---------------------------------------------
         env_origins = state.env_origins
         terrain_levels = state.terrain_levels
+        if cfg.terrain.curriculum and self.custom_origins:
+            tc = cfg.terrain
+            dist = torch.linalg.norm(sim.base_pos[:, :2] - env_origins[:, :2],
+                                     dim=-1)
+            move_up = dist > tc.terrain_length / 2
+            req = (torch.linalg.norm(commands[:, :2], dim=-1)
+                   * cfg.env.episode_length_s * 0.5)
+            move_down = (dist < req) & ~move_up
+            lvl = (terrain_levels + move_up.to(torch.int32)
+                   - move_down.to(torch.int32))
+            rand_lvl = sampler.integers("terrain/levels", (N,), 0,
+                                        tc.num_rows).to(torch.int32)
+            lvl = torch.where(lvl >= tc.num_rows, rand_lvl,
+                              torch.clamp(lvl, min=0))
+            terrain_levels = torch.where(apply_reset, lvl, terrain_levels)
+            new_origin = self._origin_of(terrain_levels, state.terrain_types)
+            env_origins = _w(apply_reset, new_origin, env_origins)
+
+        # ---- episode metric flush as masked reductions ----------------------
         reset_train = apply_reset & train_mask
         reset_eval = apply_reset & ~train_mask
         info: Dict[str, Any] = {}

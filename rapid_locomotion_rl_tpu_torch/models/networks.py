@@ -138,3 +138,12 @@ def normal_entropy(std):
     return torch.sum(0.5 + 0.5 * math.log(2.0 * math.pi) + torch.log(std),
                      dim=-1)
 
+
+
+def normal_kl(mu0, sig0, mu1, sig1):
+    """KL(N0 || N1) summed over the action axis (the adaptive-LR
+    estimate)."""
+    return torch.sum(
+        torch.log(sig1 / sig0 + 1e-5)
+        + (sig0 ** 2 + (mu0 - mu1) ** 2) / (2.0 * sig1 ** 2) - 0.5,
+        dim=-1)

@@ -10,16 +10,21 @@ Pallas kernel ``ops/pallas_physics.py::_kernel``.
 The kernel library is built at first use by ``nvcc`` into
 ``build/torch_kernels/<hash of csrc/>/`` and loaded with ``ctypes``: the
 sources have a plain C interface and include no PyTorch header, so the
-build takes seconds. Only the variant the env runs is built for the card:
-the quadruped limb layout (3 x 4) with the implicit-damping input. The same
-per-env body also builds with ``g++`` into a CPU library, in every variant
+build takes seconds. Only the variants the env runs are built for the
+card: the quadruped limb layout (3 x 4) with the implicit-damping input, on
+the plane (Go1) and on terrain (Mini Cheetah, trimesh). The same per-env
+body also builds with ``g++`` into a CPU library, in every variant
 (:func:`build_host_library`), which the CPU tests hold against the plain
 version.
 
 Layout: the wrapper packs the inputs into one [C_in, N] float32 array,
 channel-major (state 13+2nv, tau nv, payload 1, CoM shift 3, restitution 1,
-mixed friction 1, then implicit damping nv when given), and unpacks the
-[13+2nv+3nr+3ng, N] output. The robot model is a flat float32 table packed
+mixed friction 1, then implicit damping nv when given, then with terrain
+the height under each geom ng and its normal 3ng), and unpacks the
+[13+2nv+3nr+3ng, N] output. The terrain rows come from plain gathers into
+the height grid at the call's entry state
+(:func:`.soa_physics.sample_geom_terrain`), as the JAX package samples them
+outside its kernel. The robot model is a flat float32 table packed
 once per (model, sim config, device) by :func:`pack_constants`.
 """
 
@@ -40,7 +45,9 @@ from .. import ROOT_DIR
 from .dynamics import PhysParams, SimState
 from .limb_dynamics import LimbLayout, np_spatial_inertia
 from .physics import StepOutput
-from .soa_physics import check_supported, physics_step_soa
+from .contact import TerrainGrid, Window
+from .soa_physics import (_v3, check_supported, physics_step_soa,
+                          sample_geom_terrain, static_friction)
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
@@ -120,7 +127,8 @@ def load_host_library(path: str):
     lib = ctypes.CDLL(path)
     fn = lib.rl_physics_step_host
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int]
     fn.restype = ctypes.c_int
     return lib
 
@@ -182,17 +190,31 @@ def pack_constants(model, sim_cfg, layout: LimbLayout) -> np.ndarray:
 
 
 def pack_inputs(model, state: SimState, tau, params: PhysParams,
-                implicit_damp) -> torch.Tensor:
-    """[C_in, N] float32 channel-major input of the kernel."""
+                implicit_damp, terrain: Optional[TerrainGrid] = None,
+                geom_terrain=None) -> torch.Tensor:
+    """[C_in, N] float32 channel-major input of the kernel. With a terrain
+    grid, ``geom_terrain`` is (height [N, ng], normal [N, ng, 3]) under
+    each geom (:func:`.soa_physics.sample_geom_terrain`)."""
     chans = [state.base_pos.T, state.base_quat.T, state.base_lin_vel.T,
              state.base_ang_vel.T, state.q.T, state.qd.T, tau.T,
              params.payload[None], params.com_displacement.T,
              params.restitution[None],
-             # plane ground: static friction 1.0 (as physics_step_soa)
-             (0.5 * (params.friction + 1.0))[None]]
+             (0.5 * (params.friction + static_friction(terrain)))[None]]
     if implicit_damp is not None:
         chans.append(implicit_damp.T)
+    if terrain is not None:
+        hh, nn = geom_terrain
+        chans += [hh.T, nn.reshape(nn.shape[0], -1).T]
     return torch.cat(chans, dim=0).contiguous()
+
+
+def geom_terrain_at(model, sim_cfg, layout, state: SimState,
+                    terrain: TerrainGrid, window: Optional[Window]):
+    """The terrain rows' values at ``state`` (the call's entry state)."""
+    return sample_geom_terrain(
+        model, layout, sim_cfg, terrain, _v3(state.base_pos),
+        tuple(state.base_quat[:, i] for i in range(4)),
+        [state.q[:, j] for j in range(model.nv)], window)
 
 
 def out_channels(model) -> int:
@@ -209,7 +231,8 @@ def unpack_outputs(model, y: torch.Tensor) -> StepOutput:
     return StepOutput(state, report, geom_pos)
 
 
-def _check_inputs(model, state, tau, params, implicit_damp, device):
+def _check_inputs(model, state, tau, params, implicit_damp, device,
+                  terrain=None):
     N = state.q.shape[0]
     want = {
         "base_pos": (state.base_pos, (N, 3)),
@@ -234,17 +257,25 @@ def _check_inputs(model, state, tau, params, implicit_damp, device):
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, "
                              f"expected {shape}")
+    if terrain is not None:
+        h = terrain.height
+        if h.device != device or h.dtype != torch.float32 or h.dim() != 2:
+            raise ValueError(f"terrain height must be a 2-D float32 tensor "
+                             f"on {device}")
     if N == 0:
         raise ValueError("no envs")
 
 
 class PhysicsStepKernel:
-    """The built CUDA library, the constant tables, and the launch count.
+    """The built CUDA library, the constant tables, and the launch counts.
 
-    ``launches`` grows by one at each kernel launch and nowhere else."""
+    ``launches`` grows by one at each kernel launch and nowhere else;
+    ``terrain_launches`` counts the launches of the terrain variant among
+    them."""
 
     def __init__(self):
         self.launches = 0
+        self.terrain_launches = 0
         self.build_log = ""
         self.library_path = None
         self._fn = None
@@ -258,7 +289,7 @@ class PhysicsStepKernel:
             fn = lib.rl_physics_step
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                            ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_int, ctypes.c_void_p]
+                           ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
             fn.restype = ctypes.c_int
             self._lib, self._fn = lib, fn
             self.library_path, self.build_log = path, log
@@ -279,7 +310,8 @@ class PhysicsStepKernel:
         return hit[1]
 
     def launch_packed(self, x: torch.Tensor, y: torch.Tensor,
-                      cst: torch.Tensor, layout: LimbLayout, has_imp: bool):
+                      cst: torch.Tensor, layout: LimbLayout, has_imp: bool,
+                      has_terrain: bool = False):
         """Launch on packed [C_in, N] input and [C_out, N] output arrays on
         the current stream; raises if the launch is refused."""
         if (layout.D, layout.K) != CUDA_LAYOUT or not has_imp:
@@ -299,20 +331,26 @@ class PhysicsStepKernel:
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(y.data_ptr()),
                  ctypes.c_void_p(cst.data_ptr()), x.shape[1], layout.D,
-                 layout.K, int(has_imp), ctypes.c_void_p(stream))
+                 layout.K, int(has_imp), int(has_terrain),
+                 ctypes.c_void_p(stream))
         if err != 0:
             raise RuntimeError(f"physics kernel launch failed: cudaError {err}")
         self.launches += 1
+        self.terrain_launches += int(has_terrain)
 
     def __call__(self, model, sim_cfg, state, tau, params, implicit_damp,
-                 layout) -> StepOutput:
+                 layout, terrain=None, terrain_window=None) -> StepOutput:
         device = state.q.device
-        _check_inputs(model, state, tau, params, implicit_damp, device)
+        _check_inputs(model, state, tau, params, implicit_damp, device,
+                      terrain)
         cst = self.table(model, sim_cfg, layout, device)
-        x = pack_inputs(model, state, tau, params, implicit_damp)
+        gt = (None if terrain is None else geom_terrain_at(
+            model, sim_cfg, layout, state, terrain, terrain_window))
+        x = pack_inputs(model, state, tau, params, implicit_damp, terrain, gt)
         y = torch.empty((out_channels(model), x.shape[1]),
                         dtype=torch.float32, device=device)
-        self.launch_packed(x, y, cst, layout, implicit_damp is not None)
+        self.launch_packed(x, y, cst, layout, implicit_damp is not None,
+                           terrain is not None)
         return unpack_outputs(model, y)
 
 
@@ -325,42 +363,51 @@ def physics_step_cuda(
     state: SimState,               # batched [N,...]
     tau: torch.Tensor,             # [N,nv]
     params: PhysParams,            # batched
-    terrain=None,
+    terrain: Optional[TerrainGrid] = None,
     fixed_base: bool = False,
     implicit_damp: Optional[torch.Tensor] = None,   # [N,nv] Kd_eff+dt*Kp_eff
     world_boxes=None,
     env_origin: Optional[torch.Tensor] = None,
     world_friction: float = 1.0,
+    terrain_window: Optional[Window] = None,
 ) -> StepOutput:
     """One control-step physics call: the CUDA kernel for tensors on the
-    card, the plain version for tensors on the CPU."""
+    card, the plain version for tensors on the CPU. ``terrain_window`` is
+    the env's hoisted per-step window into the grid
+    (:func:`.soa_physics.sample_geom_terrain`)."""
     layout = check_supported(model, sim_cfg, fixed_base, terrain, world_boxes)
     device = state.q.device
     if device.type == "cpu":
         return physics_step_soa(model, sim_cfg, state, tau, params,
-                                implicit_damp=implicit_damp)
+                                terrain=terrain, implicit_damp=implicit_damp,
+                                terrain_window=terrain_window)
     if device.type != "cuda":
         raise ValueError(f"no physics step for device {device}")
-    return KERNEL(model, sim_cfg, state, tau, params, implicit_damp, layout)
+    return KERNEL(model, sim_cfg, state, tau, params, implicit_damp, layout,
+                  terrain, terrain_window)
 
 
 def physics_step_host(lib, model, sim_cfg, state: SimState, tau,
                       params: PhysParams,
-                      implicit_damp: Optional[torch.Tensor] = None
+                      implicit_damp: Optional[torch.Tensor] = None,
+                      terrain: Optional[TerrainGrid] = None,
+                      terrain_window: Optional[Window] = None
                       ) -> StepOutput:
     """The kernel's per-env body built for the CPU (``lib`` from
     :func:`load_host_library`), on CPU tensors, through the same packing."""
-    layout = check_supported(model, sim_cfg)
+    layout = check_supported(model, sim_cfg, terrain=terrain)
     _check_inputs(model, state, tau, params, implicit_damp,
-                  torch.device("cpu"))
+                  torch.device("cpu"), terrain)
     cst = torch.from_numpy(pack_constants(model, sim_cfg, layout))
-    x = pack_inputs(model, state, tau, params, implicit_damp)
+    gt = (None if terrain is None else geom_terrain_at(
+        model, sim_cfg, layout, state, terrain, terrain_window))
+    x = pack_inputs(model, state, tau, params, implicit_damp, terrain, gt)
     N = x.shape[1]
     y = torch.empty((out_channels(model), N), dtype=torch.float32)
     err = lib.rl_physics_step_host(
         ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(y.data_ptr()),
         ctypes.c_void_p(cst.data_ptr()), N, layout.D, layout.K,
-        int(implicit_damp is not None))
+        int(implicit_damp is not None), int(terrain is not None))
     if err != 0:
         raise RuntimeError(f"host physics step refused layout "
                            f"{layout.D}x{layout.K}")

@@ -9,9 +9,12 @@ algebra of :mod:`.soa`. The CUDA kernel (``csrc/substep_chain.cuh``,
 bound in :mod:`.cuda_physics`) computes the same function for one env per
 thread; this module is what it is held against, and what the CPU runs.
 
-This slice covers the plane path of the apparent-inertia contact model
-with a floating base: terrain input, world boxes, the legacy contact model
-and a fixed base raise ``NotImplementedError``.
+It covers the apparent-inertia contact model with a floating base, on the
+plane z=0 or on a terrain height grid. With a grid, the height and normal
+under every geom are looked up once per call at the entry state
+(:func:`sample_geom_terrain`, plain gathers) and enter the chain as inputs,
+as they enter the kernel. World boxes, the legacy contact model and a fixed
+base raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ import numpy as np
 import torch
 
 from . import soa as S
+from .contact import (TerrainGrid, Window, square_window,
+                      terrain_height_and_normal)
 from .dynamics import PhysParams, SimState
 from .limb_dynamics import LimbLayout, layout_for, np_spatial_inertia
 from .physics import StepOutput
@@ -47,8 +52,9 @@ def check_supported(model, sim_cfg, fixed_base=False, terrain=None,
     if layout is None:
         raise NotImplementedError(
             "the physics step needs a limb-decomposable tree")
-    if terrain is not None:
-        raise NotImplementedError("terrain input is not ported yet")
+    if terrain is not None and not isinstance(terrain, TerrainGrid):
+        raise TypeError(f"terrain must be a TerrainGrid, not "
+                        f"{type(terrain).__name__}")
     if world_boxes is not None:
         raise NotImplementedError("world boxes are not ported yet")
     if fixed_base:
@@ -97,8 +103,11 @@ def substep_chain(model, sim_cfg, layout: LimbLayout, comps: Dict) -> Dict:
     - ``q``/``qd``/``tau``: lists of nv tensors
     - ``payload``, ``restitution``, ``mu``: tensors; ``com_disp``: v3 tuple
     - ``imp``: list of nv tensors (implicit-PD impedance Kd+dt*Kp) or None
+    - ``g_h``/``g_n``: optional per-geom terrain height (list of ng
+      tensors) and unit normal (list of ng v3 tuples); without them the
+      ground is the plane z=0
 
-    The ground is the plane z=0. Returns the updated state components plus
+    Returns the updated state components plus
     ``report`` (list of nr v3, world contact force per report body at
     substep 0) and ``geom_pos`` (list of ng v3, world geom centers at
     substep 0).
@@ -131,6 +140,8 @@ def substep_chain(model, sim_cfg, layout: LimbLayout, comps: Dict) -> Dict:
     com_disp = comps["com_disp"]
     restitution = comps["restitution"]
     mu = comps["mu"]
+    g_h_in = comps.get("g_h")
+    g_n_in = comps.get("g_n")
 
     report0 = None
     geom_pos_out = None
@@ -171,7 +182,7 @@ def substep_chain(model, sim_cfg, layout: LimbLayout, comps: Dict) -> Dict:
                     v_b[par],
                     S.v3_cross(w_b[par], S.v3_sub(p_b[b], p_b[par])))
 
-        # ---- geom world kinematics; flat ground at z=0 ------------------
+        # ---- geom world kinematics; terrain inputs or the plane z=0 -------
         g_pos = [None] * model.ng
         g_vel = [None] * model.ng
         g_h = [None] * model.ng
@@ -184,8 +195,12 @@ def substep_chain(model, sim_cfg, layout: LimbLayout, comps: Dict) -> Dict:
                           S.v3_cross(w_b[b], S.v3_sub(pg, p_b[b])))
             g_pos[g] = pg
             g_vel[g] = vg
-            g_h[g] = pg[2] * 0.0
-            g_n[g] = (pg[2] * 0.0, pg[2] * 0.0, pg[2] * 0.0 + 1.0)
+            if g_h_in is not None:
+                g_h[g] = g_h_in[g]
+                g_n[g] = g_n_in[g]
+            else:
+                g_h[g] = pg[2] * 0.0
+                g_n[g] = (pg[2] * 0.0, pg[2] * 0.0, pg[2] * 0.0 + 1.0)
 
         def gather_f_ext(g_force, g_app, g_torque):
             """world sphere forces applied at g_app[g] plus pure torques ->
@@ -485,28 +500,60 @@ def substep_chain(model, sim_cfg, layout: LimbLayout, comps: Dict) -> Dict:
                 report=report0, geom_pos=geom_pos_out)
 
 
+def sample_geom_terrain(model, layout: LimbLayout, sim_cfg,
+                        terrain: TerrainGrid, base_pos, base_quat, q,
+                        window: Optional[Window] = None):
+    """Terrain height [N, ng] and unit normal [N, ng, 3] under every geom
+    at the given state (SoA components, as :func:`fk_geom_xy` takes them).
+
+    The lookup reads the same cells as the JAX package's
+    ``_sample_geom_terrain``: inside the hoisted per-step ``window`` when
+    the caller passes one, else inside the square
+    ``sim_cfg.terrain_patch_size`` window around the base (a per-call
+    patch in the JAX package), else (size 0) anywhere on the grid."""
+    xy = fk_geom_xy(model, layout, base_pos, base_quat, q)
+    xs = torch.stack([x for x, _ in xy], dim=-1)          # [N, ng]
+    ys = torch.stack([y for _, y in xy], dim=-1)
+    P = int(getattr(sim_cfg, "terrain_patch_size", 0) or 0)
+    if P <= 0:
+        window = None
+    elif window is None:
+        window = square_window(terrain, base_pos[0], base_pos[1], P)
+    return terrain_height_and_normal(terrain, xs, ys, window)
+
+
+def static_friction(terrain: Optional[TerrainGrid]) -> float:
+    """The ground's static friction: the grid's, 1.0 on the plane."""
+    return terrain.static_friction if terrain is not None else 1.0
+
+
 def physics_step_soa(
     model,
     sim_cfg,
     state: SimState,               # batched [N,...]
     tau: torch.Tensor,             # [N,nv]
     params: PhysParams,            # batched
-    terrain=None,
+    terrain: Optional[TerrainGrid] = None,
     fixed_base: bool = False,
     implicit_damp: Optional[torch.Tensor] = None,   # [N,nv] Kd_eff+dt*Kp_eff
     world_boxes=None,
     env_origin: Optional[torch.Tensor] = None,
     world_friction: float = 1.0,
+    terrain_window: Optional[Window] = None,
 ) -> StepOutput:
     """One control-step physics call (``num_substeps`` substeps) for a
-    batch of envs, in plain PyTorch on any device."""
+    batch of envs, in plain PyTorch on any device. ``terrain_window`` is
+    the env's hoisted per-step window (see :func:`sample_geom_terrain`)."""
     layout = check_supported(model, sim_cfg, fixed_base, terrain, world_boxes)
+    base_pos = _v3(state.base_pos)
+    base_quat = tuple(state.base_quat[:, i] for i in range(4))
+    q = [state.q[:, j] for j in range(model.nv)]
     comps = dict(
-        base_pos=_v3(state.base_pos),
-        base_quat=tuple(state.base_quat[:, i] for i in range(4)),
+        base_pos=base_pos,
+        base_quat=base_quat,
         base_v=_v3(state.base_lin_vel),
         base_w=_v3(state.base_ang_vel),
-        q=[state.q[:, j] for j in range(model.nv)],
+        q=q,
         qd=[state.qd[:, j] for j in range(model.nv)],
         tau=[tau[:, j] for j in range(model.nv)],
         imp=(None if implicit_damp is None
@@ -514,10 +561,14 @@ def physics_step_soa(
         payload=params.payload,
         com_disp=_v3(params.com_displacement),
         restitution=params.restitution,
-        # plane ground: static friction 1.0 (JAX physics_step_soa with
-        # terrain=None)
-        mu=0.5 * (params.friction + 1.0),
+        mu=0.5 * (params.friction + static_friction(terrain)),
     )
+    if terrain is not None:
+        hh, nn = sample_geom_terrain(model, layout, sim_cfg, terrain,
+                                     base_pos, base_quat, q, terrain_window)
+        comps["g_h"] = [hh[:, g] for g in range(model.ng)]
+        comps["g_n"] = [(nn[:, g, 0], nn[:, g, 1], nn[:, g, 2])
+                        for g in range(model.ng)]
     out = substep_chain(model, sim_cfg, layout, comps)
 
     new_state = SimState(

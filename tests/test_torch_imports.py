@@ -17,11 +17,12 @@ import sys
 import chip_smoke
 import rapid_locomotion_rl_tpu_torch
 from rapid_locomotion_rl_tpu_torch import config, convert, sampler
-from rapid_locomotion_rl_tpu_torch.envs import curriculum, legged_robot, rewards
+from rapid_locomotion_rl_tpu_torch.envs import (curriculum, legged_robot,
+    rewards, terrain)
 from rapid_locomotion_rl_tpu_torch.learn import ppo
 from rapid_locomotion_rl_tpu_torch.models import networks, robot_model, urdf
-from rapid_locomotion_rl_tpu_torch.ops import (cuda_physics, dynamics,
-    limb_dynamics, physics, quat, soa, soa_physics)
+from rapid_locomotion_rl_tpu_torch.ops import (contact, cuda_physics,
+    dynamics, limb_dynamics, physics, quat, soa, soa_physics)
 from rapid_locomotion_rl_tpu_torch.utils import checkpoint
 bad = sorted(m for m in sys.modules
              if m in ("jax", "flax", "optax", "rapid_locomotion_rl_tpu")

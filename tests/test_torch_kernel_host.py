@@ -18,8 +18,9 @@ from rapid_locomotion_rl_tpu_torch.config import SimCfg
 from rapid_locomotion_rl_tpu_torch.models import load_urdf
 from rapid_locomotion_rl_tpu_torch.ops import cuda_physics as CP
 from rapid_locomotion_rl_tpu_torch.ops.soa_physics import physics_step_soa
-from torch_port_helpers import (GO1, TINY, assert_step_close, physics_inputs,
-                                torch_inputs)
+from torch_port_helpers import (GO1, MC, TINY, assert_step_close,
+                                generated_grid, on_terrain, physics_inputs,
+                                step_grid, torch_inputs)
 
 
 @pytest.fixture(scope="module")
@@ -34,7 +35,8 @@ def host_lib(tmp_path_factory):
 def models(tmp_path_factory):
     p = tmp_path_factory.mktemp("hopper") / "tiny.urdf"
     p.write_text(TINY)
-    return {"hopper": load_urdf(str(p)), "go1": load_urdf(GO1)}
+    return {"hopper": load_urdf(str(p)), "go1": load_urdf(GO1),
+            "mc": load_urdf(MC)}
 
 
 @pytest.mark.parametrize("robot,kind,with_imp", [
@@ -54,6 +56,36 @@ def test_host_kernel_matches_plain(host_lib, models, robot, kind, with_imp):
                            implicit_damp=imp)
     out = CP.physics_step_host(host_lib, model, SimCfg(), state, tau, params,
                                implicit_damp=imp)
+    if kind != "flight":
+        assert ref.contact_report.abs().max() > 0.0
+    assert_step_close(ref, out, kind)
+
+
+@pytest.mark.parametrize("robot,kind,with_imp", [
+    ("hopper", "hopper", True),
+    ("hopper", "hopper", False),
+    ("mc", "flight", True),
+    ("mc", "ground", True),
+])
+def test_host_kernel_terrain_matches_plain(host_lib, models, robot, kind,
+                                           with_imp):
+    """The terrain variant (4 ng extra input rows of per-geom height and
+    normal): the hopper on the step grid, Mini Cheetah over the generated
+    grid of slopes, stairs and obstacles."""
+    model = models[robot]
+    state, params, tau, imp = physics_inputs(model, 200 if robot == "hopper"
+                                             else 64, 8, kind)
+    if robot == "hopper":
+        _, grid = step_grid()
+    else:
+        _, grid = generated_grid()
+        state = on_terrain(state, grid, 9)
+    state, params, tau, imp = torch_inputs(state, params, tau, imp)
+    imp = imp if with_imp else None
+    ref = physics_step_soa(model, SimCfg(), state, tau, params,
+                           terrain=grid, implicit_damp=imp)
+    out = CP.physics_step_host(host_lib, model, SimCfg(), state, tau, params,
+                               implicit_damp=imp, terrain=grid)
     if kind != "flight":
         assert ref.contact_report.abs().max() > 0.0
     assert_step_close(ref, out, kind)
@@ -79,6 +111,27 @@ def test_pack_shapes_go1(models):
     assert CP.pack_inputs(model, state, tau, params, imp).shape == (67, 5)
     assert CP.pack_inputs(model, state, tau, params, None).shape == (55, 5)
     assert CP.out_channels(model) == 259
+
+
+def test_pack_shapes_mini_cheetah_terrain(models):
+    """Mini Cheetah on terrain with implicit PD: 67 + 4 ng = 235 input
+    channels (heights, then x/y/z normals per geom), 202 output channels;
+    the mixed friction takes the grid's static friction."""
+    model = models["mc"]
+    _, grid = step_grid()
+    state, params, tau, imp = torch_inputs(*physics_inputs(model, 5, 0,
+                                                           "ground"))
+    layout = CP.check_supported(model, SimCfg(), terrain=grid)
+    hh, nn = CP.geom_terrain_at(model, SimCfg(), layout, state, grid, None)
+    x = CP.pack_inputs(model, state, tau, params, imp, grid, (hh, nn))
+    assert x.shape == (235, 5) and CP.out_channels(model) == 202
+    c = 13 + 3 * model.nv
+    torch.testing.assert_close(x[c + 5], 0.5 * (params.friction
+                                                 + grid.static_friction))
+    torch.testing.assert_close(x[c + 6 + model.nv:c + 6 + model.nv + 42],
+                               hh.T)
+    torch.testing.assert_close(x[c + 6 + model.nv + 42 + 3:
+                                 c + 6 + model.nv + 42 + 6], nn[:, 1].T)
 
 
 @pytest.mark.gpu

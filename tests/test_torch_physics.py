@@ -1,10 +1,14 @@
 """The port's plain physics step (rapid_locomotion_rl_tpu_torch.ops.soa_physics)
-against the JAX package's SoA step and its Pallas kernel (interpret mode).
+against the JAX package's SoA step and its Pallas kernel (interpret mode),
+on the plane and on terrain grids.
 
 Both sides get the same numpy inputs. Identical arithmetic in float32
 agrees to the tolerances of tests/test_pallas_physics.py (2e-5 on state,
-2e-4/2e-3 on contact reports, 1e-5 on geom positions); grounded Go1 states
-with random torques agree by the bulk rule of tests/test_soa_physics.py."""
+2e-4/2e-3 on contact reports, 1e-5 on geom positions); grounded Go1 and
+Mini Cheetah states with random torques agree by the bulk rule of
+tests/test_soa_physics.py. On terrain the JAX side reads the geoms' cells
+through its patch einsums and the port through 4-corner gathers, which
+agree up to float reassociation (tests/test_torch_terrain.py)."""
 
 import jax
 import jax.numpy as jnp
@@ -23,8 +27,9 @@ from rapid_locomotion_rl_tpu_torch.models import load_urdf
 from rapid_locomotion_rl_tpu_torch.ops.cuda_physics import physics_step_cuda
 from rapid_locomotion_rl_tpu_torch.ops.soa_physics import (fk_geom_xy,
                                                            physics_step_soa)
-from torch_port_helpers import (GO1, TINY, assert_step_close, physics_inputs,
-                                torch_inputs)
+from torch_port_helpers import (GO1, MC, TINY, assert_step_close,
+                                generated_grid, on_terrain, physics_inputs,
+                                step_grid, torch_inputs)
 
 
 @pytest.fixture(scope="module")
@@ -143,14 +148,80 @@ def test_cpu_dispatch_runs_plain_version(hopper_urdf):
     assert torch.equal(a.contact_report, b.contact_report)
 
 
-@pytest.mark.parametrize("variant", ["terrain", "world", "fixed_base",
-                                     "legacy"])
+@pytest.mark.parametrize("variant", ["world", "fixed_base", "legacy"])
 def test_unported_variants_raise(hopper_urdf, variant):
     tm = load_urdf(hopper_urdf)
     ts, tp, tt, ti = torch_inputs(*physics_inputs(tm, 4, 4, "hopper"))
     sim = SimCfg(contact_model="legacy") if variant == "legacy" else SimCfg()
-    kw = {"terrain": object()} if variant == "terrain" else \
-        {"world_boxes": object()} if variant == "world" else \
+    kw = {"world_boxes": object()} if variant == "world" else \
         {"fixed_base": True} if variant == "fixed_base" else {}
     with pytest.raises(NotImplementedError):
         physics_step_cuda(tm, sim, ts, tt, tp, implicit_damp=ti, **kw)
+
+
+@pytest.mark.parametrize("reference", ["soa", "pallas"])
+def test_hopper_on_step_grid_matches_jax(hopper_urdf, reference):
+    """Terrain input on the step grid of tests/test_pallas_physics.py
+    (heights 0 and 0.08 m, the step's normals), implicit PD on, 200 envs:
+    against the JAX SoA step and the TPU kernel's terrain variant in
+    interpret mode. The default terrain_patch_size of 16 makes both sides
+    look up through the per-call square window."""
+    jm, tm = jload_urdf(hopper_urdf), load_urdf(hopper_urdf)
+    jg, tg = step_grid()
+    state, params, tau, imp = physics_inputs(tm, 200, 0, "hopper")
+    js, jp, jt, ji = _jax_inputs(state, params, tau, imp)
+    with jax.disable_jit():
+        if reference == "soa":
+            ref = jstep(jm, JSimCfg(), js, jt, jp, jg, implicit_damp=ji)
+        else:
+            ref = physics_step_pallas(jm, JSimCfg(), js, jt, jp, jg,
+                                      implicit_damp=ji, interpret=True)
+    ts, tp, tt, ti = torch_inputs(state, params, tau, imp)
+    out = physics_step_soa(tm, SimCfg(), ts, tt, tp, terrain=tg,
+                           implicit_damp=ti)
+    gx = np.asarray(ref.geom_pos)[..., 0]
+    assert (gx > 0.45).any() and (gx < 0.35).any(), \
+        "geoms should sit on both sides of the step"
+    assert np.abs(np.asarray(ref.contact_report)).max() > 0.0
+    assert_step_close(ref, out, "strict")
+
+
+@pytest.fixture(scope="module")
+def mc_terrain_pair():
+    """One JAX call on 16 Mini Cheetah envs over the generated grid
+    (slopes, stairs, obstacles; implicit PD on): envs 0-7 in torque-free
+    flight, envs 8-15 standing on the terrain with random torques."""
+    jm, tm = jload_urdf(MC), load_urdf(MC)
+    jg, tg = generated_grid()
+    fl = physics_inputs(tm, 8, 11, "flight")
+    gr = physics_inputs(tm, 8, 12, "ground")
+    st = {k: np.concatenate([fl[0][k], gr[0][k]]) for k in fl[0]}
+    st = on_terrain(st, tg, 13)
+    params = {k: np.concatenate([fl[1][k], gr[1][k]]) for k in fl[1]}
+    tau, imp = np.concatenate([fl[2], gr[2]]), np.concatenate([fl[3], gr[3]])
+    js, jp, jt, ji = _jax_inputs(st, params, tau, imp)
+    with jax.disable_jit():
+        ref = jstep(jm, JSimCfg(), js, jt, jp, jg, implicit_damp=ji)
+    ts, tp, tt, ti = torch_inputs(st, params, tau, imp)
+    out = physics_step_soa(tm, SimCfg(), ts, tt, tp, terrain=tg,
+                           implicit_damp=ti)
+    return ref, out, tg, ts
+
+
+@pytest.mark.parametrize("kind", ["flight", "ground"])
+def test_mini_cheetah_on_terrain_matches_jax(mc_terrain_pair, kind):
+    """Mini Cheetah (nv=12, ng=42, nr=13): flight strictly, grounded
+    states on non-flat cells in bulk."""
+    ref, out, tg, ts = mc_terrain_pair
+    sl = slice(0, 8) if kind == "flight" else slice(8, 16)
+    ref, out = (_half(o, sl) for o in (ref, out))
+    if kind == "ground":
+        from rapid_locomotion_rl_tpu_torch.ops.contact import \
+            terrain_height_and_normal
+        gp = torch.tensor(ref.geom_pos)
+        _, n = terrain_height_and_normal(tg, gp[..., 0], gp[..., 1])
+        assert (n[..., 2] < 0.999).any(), "no geom over a sloped cell"
+        assert np.abs(ref.contact_report).max() > 1.0
+    else:
+        assert np.abs(ref.contact_report).max() == 0.0
+    assert_step_close(ref, out, kind)

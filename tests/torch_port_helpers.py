@@ -109,3 +109,57 @@ def assert_step_close(ref, out, kind):
                                rtol=2e-4, atol=2e-3)
     np.testing.assert_allclose(np.asarray(out.geom_pos),
                                np.asarray(ref.geom_pos), rtol=1e-5, atol=1e-5)
+
+
+def step_grid():
+    """The step grid of tests/test_pallas_physics.py (48 x 48 cells of
+    0.1 m, a 0.08 m step at row 24), as (JAX grid, torch grid)."""
+    h = np.zeros((48, 48), np.float32)
+    h[24:, :] = 0.08
+    return _grids(h, 0.1, 2.0)
+
+
+def generated_grid():
+    """A non-flat trimesh collision grid from the default TerrainCfg mix
+    (sloped pyramids, stairs up and down, obstacles) at 3 x 5 cells of
+    4 m with the curriculum's difficulty rows, built by the JAX package,
+    as (JAX grid, torch grid)."""
+    from rapid_locomotion_rl_tpu.config import TerrainCfg
+    from rapid_locomotion_rl_tpu.envs.terrain import Terrain
+    c = TerrainCfg()
+    c.num_rows, c.num_cols = 3, 5
+    c.terrain_length = c.terrain_width = 4.0
+    c.border_size = 2.0
+    g = Terrain(c, 16, seed=0).as_collision_grid(
+        1.0, 1.0, 0.0, upsample=2, slope_threshold=c.slope_treshold)
+    return _grids(np.asarray(g.height), g.horizontal_scale, g.border_size)
+
+
+def _grids(h, scale, border):
+    import jax.numpy as jnp
+    from rapid_locomotion_rl_tpu.ops.contact import TerrainGrid as JGrid
+    from rapid_locomotion_rl_tpu_torch.ops.contact import TerrainGrid
+    args = dict(horizontal_scale=scale, border_size=border,
+                static_friction=0.8, dynamic_friction=0.8, restitution=0.0)
+    return (JGrid(height=jnp.asarray(h), **args),
+            TerrainGrid(height=torch.tensor(h), **args))
+
+
+def on_terrain(state, grid, seed):
+    """``physics_inputs`` state moved over the generated grid: bases spread
+    over its cells, heights raised by the terrain height under the base
+    (so grounded robots stand on slopes, stairs and obstacles)."""
+    from rapid_locomotion_rl_tpu_torch.ops.contact import (
+        terrain_height_bilinear)
+    rng = np.random.default_rng(seed)
+    n = state["base_pos"].shape[0]
+    rows, cols = grid.height.shape
+    span_x = (rows - 1) * grid.horizontal_scale - 2 * grid.border_size
+    span_y = (cols - 1) * grid.horizontal_scale - 2 * grid.border_size
+    pos = state["base_pos"].copy()
+    pos[:, 0] = rng.uniform(0.2, span_x - 0.2, n)
+    pos[:, 1] = rng.uniform(0.2, span_y - 0.2, n)
+    h = terrain_height_bilinear(grid, torch.tensor(pos[:, 0]),
+                                torch.tensor(pos[:, 1])).numpy()
+    pos[:, 2] += h
+    return dict(state, base_pos=pos.astype(np.float32))
