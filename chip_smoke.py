@@ -8,9 +8,9 @@ phase prints one flushed line with the seconds elapsed; a failed phase
 raises and the script exits non-zero.
 
 1. device:   a CUDA card, its name and power limit (nvidia-smi).
-2. build:    nvcc builds the physics kernel (both variants the port runs:
-             the plane and terrain) from csrc/; ptxas's register, spill and
-             shared-memory lines.
+2. build:    nvcc builds the physics kernel (the three variants the port
+             runs: the plane, terrain, and terrain with world boxes) from
+             csrc/; ptxas's register, spill and stack lines.
 3. kernel:   the plane variant against its plain PyTorch version on Go1 at
              4096 envs, on states made from a numpy seed: torque-free
              flight at rtol/atol 2e-5 on state and 1e-5 on geom positions;
@@ -22,12 +22,20 @@ raises and the script exits non-zero.
              envs spread over the default TerrainCfg mix (slopes, stairs,
              obstacles; the flagship's own grid is flat), looked up through
              the env's column-block window.
-5. rollout:  the Go1 env (config_go1, 4096 envs, plane) with the
+5. world:    the terrain + world variant, the same way, at the HLP's own
+             width (1024 Mini Cheetah envs), in the HLP's corridor around
+             each env's origin over the same mix, spheres clear of,
+             touching, crossing and inside the walls; flight inside the
+             walls' height at rtol/atol 2e-5 and the report entries that
+             the walls change at 2e-4/2e-3; grounded states in bulk. Its
+             numbers go into the kernels line. Then the same checks and
+             times at 4000 envs (the flagship's width), for comparison.
+6. rollout:  the Go1 env (config_go1, 4096 envs, plane) with the
              runs/r4_go1 policy weights; one PPO horizon (24 steps) of
              teacher-policy rollout; outputs finite; the plane variant
              launched exactly 24 x decimation times; env-steps/s and peak
              memory.
-6. flagship: config_mini_cheetah (4000 envs, trimesh) with the
+7. flagship: config_mini_cheetah (4000 envs, trimesh) with the
              runs/r5_flagship weights: 2 training iterations (24-step
              rollout, GAE, 5 x 4 minibatches of PPO with the adaptive-KL
              LR and the adaptation-module step); 96 terrain-variant
@@ -35,7 +43,21 @@ raises and the script exits non-zero.
              params, LR in [1e-5, max_lr], mean base z in (0.15, 0.5) m,
              done rate under 5%; the rollout/update split, env-steps/s of
              the iteration and peak memory.
-7. result:   the kernels line, the card line, and the contract line.
+8. hlp:      scripts/high_level_play_cuda.py's main path: the frozen
+             runs/r4_flagship_4000 student under the goal-navigation env at
+             1024 envs (trimesh), r5_hlp7's recipe, resumed from its train
+             state, 2 Runner iterations of 200 steps (800 terrain-variant
+             launches each); finite losses, KL, LR and params, LR in
+             [1e-5, 1e-3], r5_hlp7's metric keys, the checkpoint read back
+             equal, at least one goal reached; the rollout/update split,
+             env-steps/s and peak memory.
+9. hlp-world: the same entry with the corridor on, from a fresh state: one
+             iteration, all 800 physics calls through the terrain + world
+             variant, finite results, some env against a wall; then the
+             kernel against its plain version on the low-level state at
+             the iteration's end (in bulk, and the report entries that the
+             walls change).
+10. result:  the kernels line, the card line, and the contract line.
 """
 
 from __future__ import annotations
@@ -49,6 +71,7 @@ import time
 T0 = time.time()
 N_ENVS = 4096
 N_MC = 4000
+N_HLP = 1024
 HORIZON = 24
 ITERATIONS = 2
 SEED = 0
@@ -144,14 +167,17 @@ def random_inputs(model, n, seed, airborne, dev):
     return state, tau, params, imp
 
 
-def count_ops_per_env(model, sim_cfg, n=8, terrain=False):
+def count_ops_per_env(model, sim_cfg, n=8, terrain=False, world=False):
     """Arithmetic operations per env of one physics call, counted from the
     plain version's substep chain on the CPU (the kernel's work; with
     ``terrain`` the per-geom heights and normals are inputs, as in the
-    kernel): every elementwise aten op adds its output's element count
-    (sin, sqrt, a comparison or a clamp count as one)."""
+    kernel; with ``world`` the default corridor's 4 walls act in every
+    substep, whatever the spheres' distance to them, as in the kernel):
+    every elementwise aten op adds its output's element count (sin, sqrt,
+    a comparison or a clamp count as one)."""
     import torch
     from torch.utils._python_dispatch import TorchDispatchMode
+    from rapid_locomotion_rl_tpu_torch.envs.world import default_corridor
     from rapid_locomotion_rl_tpu_torch.ops.soa_physics import (
         _v3, check_supported, substep_chain)
     skip = ("view", "select", "slice", "stack", "cat", "unbind", "detach",
@@ -186,9 +212,13 @@ def count_ops_per_env(model, sim_cfg, n=8, terrain=False):
             + torch.tensor([0.0, 0.0, 1.0]), dim=-1)
         comps["g_h"] = list(0.05 * torch.randn(model.ng, n, generator=g))
         comps["g_n"] = [tuple(n3[:, i].T) for i in range(model.ng)]
+    boxes = None
+    if world:
+        boxes = default_corridor()
+        comps["origin"] = _v3(state.base_pos * 0.5)
     layout = check_supported(model, sim_cfg)
     with Count():
-        substep_chain(model, sim_cfg, layout, comps)
+        substep_chain(model, sim_cfg, layout, comps, boxes)
     return Count.ops / n
 
 
@@ -206,7 +236,7 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def mostly_close(phase, name, a, b, atol, where=None):
+def mostly_close(phase, name, a, b, atol, where=None, label="grounded"):
     """Bulk agreement: states on a contact-branch boundary flip on fp-level
     differences, so grounded states agree entry by entry only in bulk. The
     floor is 99% of entries within atol + 1e-3 |ref|: tighter than the 80%
@@ -217,19 +247,22 @@ def mostly_close(phase, name, a, b, atol, where=None):
     if where is not None:
         close = close[where]
     ok = close.float().mean().item()
-    say(phase, f"grounded {name}: {ok:.4f} of {close.numel()} within atol "
+    say(phase, f"{label} {name}: {ok:.4f} of {close.numel()} within atol "
         f"{atol} (max |err| {(a - b).abs().max().item():.3g})")
     if not ok >= 0.99:
-        raise AssertionError(f"grounded {name}: only {ok:.4f} < 0.99 agree")
+        raise AssertionError(f"{label} {name}: only {ok:.4f} < 0.99 agree")
 
 
 def hold_kernel(phase, model, sim, make_inputs, n, terrain=None,
-                window=None):
+                window=None, boxes=None, origins=None):
     """The kernel against its plain version: torque-free flight strictly,
     grounded states with random torques in bulk; then its time per launch,
     the plain version's time per call, and the bound, at these shapes.
     ``make_inputs(seed, airborne)`` gives (state, tau, params, imp);
-    ``window(state)`` the terrain window of the env's step."""
+    ``window(state)`` the terrain window of the env's step. With world
+    ``boxes`` at ``origins`` [N, 3], the flight state flies over the walls
+    (the world branch runs and adds nothing), and the grounded state's
+    report entries that the walls change are counted and held in bulk."""
     import torch
     from rapid_locomotion_rl_tpu_torch.ops import cuda_physics as CP
     from rapid_locomotion_rl_tpu_torch.ops.soa_physics import physics_step_soa
@@ -237,7 +270,8 @@ def hold_kernel(phase, model, sim, make_inputs, n, terrain=None,
 
     def both(state, tau, params, imp):
         kw = dict(terrain=terrain, implicit_damp=imp,
-                  terrain_window=None if window is None else window(state))
+                  terrain_window=None if window is None else window(state),
+                  world_boxes=boxes, env_origin=origins)
         out_k = CP.physics_step_cuda(model, sim, state, tau, params, **kw)
         torch.cuda.synchronize()
         out_p = physics_step_soa(model, sim, state, tau, params, **kw)
@@ -274,6 +308,21 @@ def hold_kernel(phase, model, sim, make_inputs, n, terrain=None,
     # most reported forces are zero on both sides: count the others only
     mostly_close(phase, "contact_report", out_k.contact_report,
                  out_p.contact_report, 0.5, where=out_p.contact_report != 0)
+    if boxes is not None:
+        # the entries that the walls change, against the plain step
+        # without them
+        free = physics_step_soa(
+            model, sim, state, tau, params, terrain=terrain,
+            implicit_damp=imp, terrain_window=None if window is None
+            else window(state))
+        walled = out_p.contact_report != free.contact_report
+        say(phase, f"grounded: {int(walled.sum())} report entries changed "
+            f"by the walls")
+        if int(walled.sum()) == 0:
+            raise AssertionError("grounded: no wall force")
+        mostly_close(phase, "wall report entries", out_k.contact_report,
+                     out_p.contact_report, 0.5, where=walled)
+        result["wall_entries_ground"] = int(walled.sum())
     # geom positions are taken before the contact solve: strict
     torch.testing.assert_close(out_k.geom_pos, out_p.geom_pos, rtol=1e-5,
                                atol=1e-5)
@@ -291,17 +340,19 @@ def hold_kernel(phase, model, sim, make_inputs, n, terrain=None,
             f"{int(on_slope.sum())}")
         if int(on_slope.sum()) == 0:
             raise AssertionError("no geom near a sloped surface")
-    cst = CP.KERNEL.table(model, sim, layout, state.q.device)
-    x = CP.pack_inputs(model, state, tau, params, imp, terrain, gt)
+    cst = CP.KERNEL.table(model, sim, layout, state.q.device, boxes)
+    x = CP.pack_inputs(model, state, tau, params, imp, terrain, gt, origins)
     y = torch.empty((CP.out_channels(model), n), device=state.q.device)
-    has_t = terrain is not None
+    has_t, has_w = terrain is not None, boxes is not None
     result["ms"] = time_ms(
-        lambda: CP.KERNEL.launch_packed(x, y, cst, layout, True, has_t), 50)
+        lambda: CP.KERNEL.launch_packed(x, y, cst, layout, True, has_t,
+                                        has_w), 50)
     result["plain_ms"] = time_ms(
         lambda: physics_step_soa(model, sim, state, tau, params,
                                  terrain=terrain, implicit_damp=imp,
-                                 terrain_window=win), 2)
-    ops = count_ops_per_env(model, sim, terrain=has_t)
+                                 terrain_window=win, world_boxes=boxes,
+                                 env_origin=origins), 2)
+    ops = count_ops_per_env(model, sim, terrain=has_t, world=has_w)
     nbytes = (x.numel() + y.numel() + cst.numel()) * 4
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = ops * n / H100_FP32_OPS_PER_S * 1e3
@@ -326,17 +377,11 @@ def phase_kernel(dev):
         N_ENVS)
 
 
-def phase_terrain(dev):
-    """The terrain variant on Mini Cheetah at 4000 envs over the default
-    TerrainCfg mix, looked up through the env's column-block window."""
-    import numpy as np
-    import torch
-    from rapid_locomotion_rl_tpu_torch.config import (TerrainCfg,
-                                                      config_mini_cheetah)
+def mix_grid(phase, dev):
+    """The collision grid of the default TerrainCfg mix (slopes, stairs,
+    obstacles) on the card."""
+    from rapid_locomotion_rl_tpu_torch.config import TerrainCfg
     from rapid_locomotion_rl_tpu_torch.envs.terrain import Terrain
-    from rapid_locomotion_rl_tpu_torch.ops.contact import (
-        blocked_window, terrain_height_bilinear)
-    cfg, model = robot(config_mini_cheetah)
     t = time.time()
     tc = TerrainCfg()
     terrain = Terrain(tc, N_MC, seed=SEED)
@@ -344,10 +389,23 @@ def phase_terrain(dev):
         tc.static_friction, tc.dynamic_friction, tc.restitution,
         upsample=tc.collision_upsample, slope_threshold=tc.slope_treshold,
         device=dev)
-    say("terrain", f"default TerrainCfg mix {tc.num_rows} x {tc.num_cols} "
+    say(phase, f"default TerrainCfg mix {tc.num_rows} x {tc.num_cols} "
         f"cells, collision grid {tuple(grid.height.shape)}, heights "
         f"[{grid.height.min().item():.3f}, {grid.height.max().item():.3f}] m, "
         f"built in {time.time() - t:.2f}s")
+    return tc, grid
+
+
+def phase_terrain(dev):
+    """The terrain variant on Mini Cheetah at 4000 envs over the default
+    TerrainCfg mix, looked up through the env's column-block window."""
+    import numpy as np
+    import torch
+    from rapid_locomotion_rl_tpu_torch.config import config_mini_cheetah
+    from rapid_locomotion_rl_tpu_torch.ops.contact import (
+        blocked_window, terrain_height_bilinear)
+    cfg, model = robot(config_mini_cheetah)
+    tc, grid = mix_grid("terrain", dev)
     rng = np.random.default_rng(SEED)
     xy = torch.tensor(np.stack([
         rng.uniform(0.5, tc.num_rows * tc.terrain_length - 0.5, N_MC),
@@ -365,6 +423,117 @@ def phase_terrain(dev):
         "terrain", model, cfg.sim, make_inputs, N_MC, terrain=grid,
         window=lambda s: blocked_window(grid, s.base_pos[:, 0],
                                         s.base_pos[:, 1]))
+
+
+def phase_world(dev, tc, grid, n, phase):
+    """The terrain + world variant on Mini Cheetah at ``n`` envs over the
+    default TerrainCfg mix, in the default corridor (4 walls 1 m high
+    around 3.5 x 1.6 m), each env's origin on the ground under its base,
+    the base at x in [-1.95, 1.95] and |y| in [0.45, 0.95] from the origin,
+    so that spheres clear, touch, cross and sit inside the walls.
+
+    Flight over the walls (2 m up, torque-free: the world branch runs and
+    adds nothing) is held strictly, grounded states (~0.3 m up, random
+    torques) in bulk, as for the other variants. Flight at 0.75 m, inside
+    the walls' height, touches the walls (and, on steep cells, some
+    ground): its state is held at rtol/atol 2e-5 and the report entries
+    that the walls change at 2e-4/2e-3. That holds because the kernel and
+    the plain version take the same sin and cos on the card: the walls'
+    30000 N/m turn a last-place difference in a sphere's position into
+    ~0.01 N, which moves the fastest joints of the states deepest in a
+    wall by more than 2e-5 (as between the g++ build and PyTorch on the
+    CPU). ``max_abs_err`` is the larger of the two flights' state errors
+    (the one in the walls, where the world branch acts, in practice)."""
+    import numpy as np
+    import torch
+    from rapid_locomotion_rl_tpu_torch.config import config_mini_cheetah
+    from rapid_locomotion_rl_tpu_torch.ops import cuda_physics as CP
+    from rapid_locomotion_rl_tpu_torch.ops.contact import (
+        blocked_window, terrain_height_bilinear)
+    from rapid_locomotion_rl_tpu_torch.ops.soa_physics import physics_step_soa
+    from rapid_locomotion_rl_tpu_torch.ops.world import default_corridor
+    cfg, model = robot(config_mini_cheetah)
+    boxes = default_corridor(cfg.world.length, cfg.world.width,
+                             cfg.world.wall_height, cfg.world.wall_thickness)
+    rng = np.random.default_rng(SEED + 1)
+    f = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+    xy = f(np.stack([
+        rng.uniform(2.5, tc.num_rows * tc.terrain_length - 2.5, n),
+        rng.uniform(2.5, tc.num_cols * tc.terrain_width - 2.5, n)], -1))
+    rel = f(np.stack([rng.uniform(-1.95, 1.95, n),
+                      rng.choice([-1.0, 1.0], n)
+                      * rng.uniform(0.45, 0.95, n)], -1))
+    under = terrain_height_bilinear(grid, xy[:, 0], xy[:, 1])
+    origins = torch.cat([xy - rel, under[:, None]], -1).contiguous()
+
+    def make_inputs(seed, airborne, lift=None):
+        """Flight 2 m up by default: over the 1 m walls."""
+        state, tau, params, imp = random_inputs(model, n, seed, airborne,
+                                                dev)
+        lift = 2.0 if airborne and lift is None else lift
+        z = state.base_pos[:, 2] if lift is None else 0.0 * under + lift
+        pos = torch.cat([xy, (z + under)[:, None]], -1)
+        return state._replace(base_pos=pos), tau, params, imp
+
+    def window(s):
+        return blocked_window(grid, s.base_pos[:, 0], s.base_pos[:, 1])
+
+    def both(state, tau, params, imp, walls=True):
+        kw = dict(terrain=grid, implicit_damp=imp, terrain_window=window(state),
+                  world_boxes=boxes if walls else None,
+                  env_origin=origins if walls else None)
+        out_k = (CP.physics_step_cuda(model, cfg.sim, state, tau, params, **kw)
+                 if walls else None)
+        torch.cuda.synchronize()
+        return out_k, physics_step_soa(model, cfg.sim, state, tau, params,
+                                       **kw)
+
+    # where the spheres are against the walls, at the grounded entry state
+    _, out_p = both(*make_inputs(0, False))
+    gp = out_p.geom_pos
+    rad = torch.tensor(np.asarray(model.geom_radius, np.float32), device=dev)
+    r = gp[:, :, None, :] - (origins[:, None, None, :] + boxes.centers.to(dev))
+    h = boxes.half_extents.to(dev)
+    d = (r.abs() - h).clamp_min(0.0).norm(dim=-1)
+    inside = (r.abs() <= h).all(-1).any(-1)
+    touching = ((d > 0) & (d < rad[None, :, None])).any(-1) & ~inside
+    say(phase, f"grounded geoms: {int(inside.sum())} centers inside a "
+        f"wall, {int(touching.sum())} touching or crossing one, of "
+        f"{gp.shape[0] * gp.shape[1]}")
+    if int(inside.sum()) == 0 or int(touching.sum()) == 0:
+        raise AssertionError("the states do not reach into the walls")
+
+    # flight inside the walls' height (a few feet reach steep ground)
+    walled = make_inputs(3, True, lift=0.75)
+    _, free = both(*walled, walls=False)
+    out_k, out_p = both(*walled)
+    err = 0.0
+    for name in out_p.state._fields:
+        a, b = getattr(out_k.state, name), getattr(out_p.state, name)
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"wall flight {name}: non-finite output")
+        torch.testing.assert_close(a, b, rtol=2e-5, atol=2e-5,
+                                   msg=lambda m: f"wall flight {name}: {m}")
+        err = max(err, (a - b).abs().max().item())
+    wall = out_p.contact_report != free.contact_report
+    if int(wall.sum()) == 0:
+        raise AssertionError("flight in the walls: no wall force")
+    torch.testing.assert_close(out_k.contact_report[wall],
+                               out_p.contact_report[wall], rtol=2e-4,
+                               atol=2e-3)
+    rep_err = (out_k.contact_report - out_p.contact_report)[wall].abs().max()
+    say(phase, f"flight in the walls: state max |err| {err:.3g} (rtol/atol"
+        f" 2e-5); {int(wall.sum())} wall-force entries (max |f| "
+        f"{out_p.contact_report.abs().max().item():.4g} N) within rtol 2e-4"
+        f" / atol 2e-3 (max |err| {rep_err.item():.3g} N)")
+    result = hold_kernel(
+        phase, model, cfg.sim, make_inputs, n, terrain=grid,
+        window=window, boxes=boxes, origins=origins)
+    result.update(wall_entries_flight=int(wall.sum()),
+                  flight_over_walls_err=result["max_abs_err"],
+                  flight_in_walls_err=err,
+                  max_abs_err=max(err, result["max_abs_err"]))
+    return result
 
 
 def load_run(env, weights, dev):
@@ -387,13 +556,16 @@ def load_run(env, weights, dev):
 def zero_counts():
     from rapid_locomotion_rl_tpu_torch.ops import cuda_physics as CP
     CP.KERNEL.launches = CP.KERNEL.terrain_launches = 0
+    CP.KERNEL.world_launches = 0
 
 
 def read_counts():
-    """(plane-variant launches, terrain-variant launches) since zero_counts."""
+    """(plane-variant, terrain-variant, terrain + world-variant launches)
+    since zero_counts."""
     from rapid_locomotion_rl_tpu_torch.ops import cuda_physics as CP
-    return (CP.KERNEL.launches - CP.KERNEL.terrain_launches,
-            CP.KERNEL.terrain_launches)
+    k = CP.KERNEL
+    return (k.launches - k.terrain_launches,
+            k.terrain_launches - k.world_launches, k.world_launches)
 
 
 def phase_rollout(dev):
@@ -423,11 +595,12 @@ def phase_rollout(dev):
     state, traj, info = rollout(env, ac, PPOArgs(), state, sampler, HORIZON)
     torch.cuda.synchronize()
     wall = time.time() - t
-    launches, t_launches = read_counts()
+    launches, t_launches, w_launches = read_counts()
     want = HORIZON * cfg.control.decimation
-    if launches != want or t_launches != 0:
+    if launches != want or t_launches != 0 or w_launches != 0:
         raise AssertionError(f"plane variant launched {launches} times, "
-                             f"terrain variant {t_launches}; want {want}, 0")
+                             f"terrain variant {t_launches}, world variant "
+                             f"{w_launches}; want {want}, 0, 0")
     for name, v in list(traj._asdict().items()) + list(info.items()) + \
             list(state.sim._asdict().items()):
         if v.is_floating_point() and not torch.isfinite(v).all():
@@ -512,11 +685,12 @@ def phase_flagship(dev):
             entropy_coef=ppo_args.entropy_coef, num_steps=HORIZON,
             timings=timings)
         after = read_counts()
-        plane, terr = after[0] - before[0], after[1] - before[1]
-        if plane != 0 or terr != per_iter:
+        plane, terr, wld = (a - b for a, b in zip(after, before))
+        if plane != 0 or terr != per_iter or wld != 0:
             raise AssertionError(f"iteration {it}: terrain variant launched "
-                                 f"{terr} times, plane variant {plane}; want "
-                                 f"{per_iter}, 0")
+                                 f"{terr} times, plane variant {plane}, "
+                                 f"world variant {wld}; want {per_iter}, 0, "
+                                 f"0")
         for k in ("mean_value_loss", "mean_surrogate_loss",
                   "mean_adaptation_loss", "kl", "lr", "mean_reward"):
             if not torch.isfinite(m[k]).all():
@@ -572,13 +746,267 @@ def phase_flagship(dev):
                 iterations=runs)
 
 
+HLP_RECIPE = ["--ll-run", os.path.join("runs", "r4_flagship_4000"),
+              "--num-envs", "1024", "--min-std", "0.2", "--entropy-coef",
+              "0.0", "--zero-reward-on-reset", "0", "--progress-scale", "1.0",
+              "--max-lr", "1e-3", "--dead-zone", "0", "--goal-radius", "0.5"]
+HLP_RESUME = os.path.join("runs", "r5_hlp7", "checkpoints",
+                          "train_state_last.pkl")
+
+
+def hlp_script():
+    """scripts/high_level_play_cuda.py as a module."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "scripts", "high_level_play_cuda.py")
+    spec = importlib.util.spec_from_file_location("high_level_play_cuda",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_dir(name):
+    """A fresh directory for a run's logs inside the checkout's build/."""
+    import shutil
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                     "chip_smoke", name)
+    shutil.rmtree(d, ignore_errors=True)
+    return d
+
+
+def check_finite(phase, runner):
+    import torch
+    m = runner.last_metrics
+    for k in ("mean_value_loss", "mean_surrogate_loss",
+              "mean_adaptation_loss", "kl", "lr", "mean_reward"):
+        if not (k in m and torch.isfinite(torch.tensor(m[k]))):
+            raise AssertionError(f"{phase}: {k} = {m.get(k)} is not finite")
+    if not all(torch.isfinite(p).all() for p in runner.ac.parameters()):
+        raise AssertionError(f"{phase}: non-finite parameters")
+    for name, v in runner.env_state.ll.sim._asdict().items():
+        if not torch.isfinite(v).all():
+            raise AssertionError(f"{phase}: sim state {name} is not finite")
+    if not torch.isfinite(runner.env_state.obs).all():
+        raise AssertionError(f"{phase}: observations are not finite")
+
+
+def check_round_trip(phase, runner, path):
+    """The train state written at ``path`` reads back (through the loader
+    of a resume) to the runner's params, Adam states, LR and env state,
+    tensor for tensor."""
+    import torch
+    from rapid_locomotion_rl_tpu_torch import convert
+    from rapid_locomotion_rl_tpu_torch.models.networks import ActorCritic
+    from rapid_locomotion_rl_tpu_torch.utils.checkpoint import load_pytree
+    payload = load_pytree(path)
+    ac = ActorCritic(runner.env.num_obs, runner.env.num_privileged_obs,
+                     runner.env.num_obs_history, runner.env.num_actions,
+                     runner.ac_args).to(runner.device)
+    ps = convert.ppo_state_from_jax(payload["ppo_state"], ac,
+                                    runner.ppo_args)
+    pairs = [(k, v, ac.state_dict()[k])
+             for k, v in runner.ac.state_dict().items()]
+    theirs = dict(ac.named_parameters())
+    for k, p in runner.ac.named_parameters():
+        mine, back = runner.ppo_state.opt.state[p], ps.opt.state[theirs[k]]
+        pairs += [(f"{k} {f}", mine[f], back[f])
+                  for f in ("step", "exp_avg", "exp_avg_sq")]
+    env2 = convert.state_from_jax(payload["env_state"], runner.device)
+
+    def leaves(prefix, x):
+        if isinstance(x, dict):
+            return [t for k in sorted(x) for t in leaves(f"{prefix}.{k}",
+                                                         x[k])]
+        if isinstance(x, tuple):
+            return [t for f, v in zip(x._fields, x)
+                    for t in leaves(f"{prefix}.{f}", v)]
+        return [(prefix, x)]
+    mine, back = leaves("env", runner.env_state), leaves("env", env2)
+    pairs += [(k, a, b) for (k, a), (_, b) in zip(mine, back)]
+    bad = [k for k, a, b in pairs if not torch.equal(a.cpu(), b.cpu())]
+    if bad or len(mine) != len(back) or ps.lr != runner.ppo_state.lr:
+        raise AssertionError(f"{phase}: checkpoint read back differs: "
+                             f"{bad[:8]}, lr {ps.lr} vs "
+                             f"{runner.ppo_state.lr}")
+    say(phase, f"checkpoint {os.path.basename(path)} read back equal: "
+        f"{len(pairs) - len(mine)} params and Adam tensors, lr "
+        f"{ps.lr:.6g}, {len(mine)} env-state tensors")
+
+
+def phase_hlp(dev):
+    """scripts/high_level_play_cuda.py's main path on the card: the frozen
+    runs/r4_flagship_4000 student under the HLP env at 1024 envs (trimesh,
+    the corridor off), r5_hlp7's recipe, resumed from its train state
+    (params, both Adam states, LR, env state), 2 iterations of 200 steps
+    through the Runner into a scratch logdir."""
+    import json
+    import numpy as np
+    import torch
+    mod = hlp_script()
+    logdir = run_dir("hlp")
+    argv = HLP_RECIPE + ["--resume", HLP_RESUME, "--iterations",
+                         str(ITERATIONS), "--logdir", logdir,
+                         "--device", str(dev)]
+    say("hlp", "high_level_play_cuda.py " + " ".join(argv))
+    t = time.time()
+    runner = mod.build_runner(mod.parse_args(argv))
+    torch.cuda.synchronize()
+    start = runner.current_learning_iteration
+    say("hlp", f"low level, HLP env ({runner.env.num_envs} envs: "
+        f"{runner.env.num_train_envs} train, {runner.env.num_eval_envs} "
+        f"eval) and the resumed state (iteration {start}, lr "
+        f"{runner.ppo_state.lr:.6g}) loaded in {time.time() - t:.2f}s")
+    if start != 5200:
+        raise AssertionError(f"resumed at iteration {start}, not 5200")
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    goals = []
+    log_iteration = runner._log_iteration
+
+    def logged(it, metrics):
+        log_iteration(it, metrics)
+        goals.append(runner.last_metrics["goal_reached_count"])
+    runner._log_iteration = logged
+    runner.learn(ITERATIONS, eval_freq=200)
+    torch.cuda.synchronize()
+    plane, terr, wld = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    steps = runner.args.num_steps_per_env
+    want = ITERATIONS * steps * runner.env.ll_env.cfg.control.decimation
+    if plane != 0 or terr != want or wld != 0:
+        raise AssertionError(f"terrain variant launched {terr} times, plane "
+                             f"{plane}, world {wld}; want {want}, 0, 0")
+    check_finite("hlp", runner)
+    if not float(np.float32(1e-5)) <= runner.ppo_state.lr <= 1e-3:
+        raise AssertionError(f"lr {runner.ppo_state.lr} out of [1e-5, 1e-3]")
+    for i, tm in enumerate(runner.timings):
+        total = tm["rollout_s"] + tm["update_s"]
+        say("hlp", f"iteration {start + i}: rollout {tm['rollout_s']:.3f}s "
+            f"({tm['rollout_s'] / steps * 1e3:.1f} ms/env step), update "
+            f"{tm['update_s']:.3f}s ({tm['update_s'] / total:.1%}), "
+            f"{steps * runner.env.num_envs / total:.0f} env-steps/s; goals "
+            f"reached {goals[i]:.0f}")
+    m = runner.last_metrics
+    say("hlp", f"last iteration: value loss {m['mean_value_loss']:.4g}, "
+        f"surrogate {m['mean_surrogate_loss']:.4g}, adaptation "
+        f"{m['mean_adaptation_loss']:.4g}, kl {m['kl']:.4g}, lr "
+        f"{runner.ppo_state.lr:.4g}, mean reward {m['mean_reward']:.5f}; "
+        f"{terr} terrain-variant launches; peak memory "
+        f"{peak / 2**20:.1f} MiB | {card_line()}")
+    if sum(goals) < 1:
+        raise AssertionError(f"no goal reached in {ITERATIONS} iterations")
+
+    def keys(path):
+        with open(path) as f:
+            return set().union(*(json.loads(x) for x in f)) - {"_timestamp"}
+    got = keys(os.path.join(logdir, "metrics.jsonl"))
+    ref = keys(os.path.join("runs", "r5_hlp7", "metrics.jsonl"))
+    if got != ref:
+        raise AssertionError(f"metric keys differ from r5_hlp7's: extra "
+                             f"{sorted(got - ref)}, missing "
+                             f"{sorted(ref - got)}")
+    say("hlp", f"metrics.jsonl has r5_hlp7's {len(ref)} keys")
+    check_round_trip("hlp", runner, os.path.join(
+        logdir, "checkpoints", "train_state_last.pkl"))
+    return dict(launches=terr, peak_bytes=peak, timings=runner.timings,
+                goals=goals)
+
+
+def phase_hlp_world(dev):
+    """The same entry with the corridor on (cfg.world, --world) from a
+    fresh state: one iteration, every physics call through the terrain +
+    world variant; some env pressed against a wall. Then the kernel
+    against its plain version on the low-level state at the iteration's
+    end (its last torques, DR parameters, terrain window and origins):
+    every state field and the report entries that the walls
+    change in bulk (>= 99% within atol + 1e-3 |ref|, as for grounded
+    states), geom positions at 1e-5."""
+    import torch
+    from rapid_locomotion_rl_tpu_torch.ops import cuda_physics as CP
+    from rapid_locomotion_rl_tpu_torch.ops.dynamics import PhysParams
+    from rapid_locomotion_rl_tpu_torch.ops.soa_physics import physics_step_soa
+    mod = hlp_script()
+    argv = HLP_RECIPE + ["--world", "--iterations", "1", "--logdir",
+                         run_dir("hlp_world"), "--device", str(dev)]
+    say("hlp-world", "high_level_play_cuda.py " + " ".join(argv))
+    runner = mod.build_runner(mod.parse_args(argv))
+    torch.cuda.synchronize()
+    zero_counts()
+    runner.learn(1, eval_freq=200)
+    torch.cuda.synchronize()
+    plane, terr, wld = read_counts()
+    ll_env = runner.env.ll_env
+    want = runner.args.num_steps_per_env * ll_env.cfg.control.decimation
+    if plane != 0 or terr != 0 or wld != want:
+        raise AssertionError(f"world variant launched {wld} times, terrain "
+                             f"{terr}, plane {plane}; want {want}, 0, 0")
+    check_finite("hlp-world", runner)
+    tm = runner.timings[0]
+    total = tm["rollout_s"] + tm["update_s"]
+
+    # the walls' share of the contact report at the final state: one call
+    # with the corridor and one without (not counted)
+    ll = runner.env_state.ll
+    dr = ll.dr
+    imp = (ll_env.d_gains * dr.Kd_factors + ll_env._dt_sub * ll_env.p_gains
+           * dr.Kp_factors) * dr.motor_strengths
+    pp = PhysParams(dr.friction, dr.restitution, dr.payloads,
+                    dr.com_displacements)
+    grid = ll_env.collision_grid
+    win = ll_env._window(grid, ll.sim.base_pos[:, 0], ll.sim.base_pos[:, 1])
+    kw = dict(terrain=grid, implicit_damp=imp, terrain_window=win)
+    walled = CP.physics_step_cuda(
+        ll_env.model, ll_env.cfg.sim, ll.sim, ll.torques, pp,
+        world_boxes=ll_env.world_boxes, env_origin=ll.env_origins,
+        world_friction=ll_env.cfg.terrain.static_friction, **kw)
+    free = CP.physics_step_cuda(ll_env.model, ll_env.cfg.sim, ll.sim,
+                                ll.torques, pp, **kw)
+    torch.cuda.synchronize()
+    pressed = (walled.contact_report != free.contact_report).any(-1).any(-1)
+    plain = physics_step_soa(
+        ll_env.model, ll_env.cfg.sim, ll.sim, ll.torques, pp,
+        world_boxes=ll_env.world_boxes, env_origin=ll.env_origins,
+        world_friction=ll_env.cfg.terrain.static_friction, **kw)
+    plain_free = physics_step_soa(ll_env.model, ll_env.cfg.sim, ll.sim,
+                                  ll.torques, pp, **kw)
+    torch.cuda.synchronize()
+    for name in plain.state._fields:
+        atol = 1e-2 if name in ("qd", "base_lin_vel", "base_ang_vel") else 1e-3
+        mostly_close("hlp-world", name, getattr(walled.state, name),
+                     getattr(plain.state, name), atol, label="HLP state")
+    by_walls = plain.contact_report != plain_free.contact_report
+    if int(by_walls.sum()) == 0:
+        raise AssertionError("HLP state: no wall force in the plain version")
+    mostly_close("hlp-world", "wall report entries", walled.contact_report,
+                 plain.contact_report, 0.5, where=by_walls,
+                 label="HLP state")
+    torch.testing.assert_close(walled.geom_pos, plain.geom_pos, rtol=1e-5,
+                               atol=1e-5)
+    say("hlp-world", f"{wld} world-variant launches; rollout "
+        f"{tm['rollout_s']:.3f}s, update {tm['update_s']:.3f}s, "
+        f"{runner.args.num_steps_per_env * runner.env.num_envs / total:.0f} "
+        f"env-steps/s; {int(pressed.sum())} envs pressed against a wall at "
+        f"the end; kl {runner.last_metrics['kl']:.4g}, lr "
+        f"{runner.ppo_state.lr:.4g} | {card_line()}")
+    if int(pressed.sum()) == 0:
+        raise AssertionError("no env touches a wall")
+    return dict(launches=wld, timings=tm)
+
+
 def main() -> int:
     dev = phase_device()
     phase_build()
     k1 = phase_kernel(dev)
     kt = phase_terrain(dev)
+    tc, grid = mix_grid("world", dev)
+    kw = phase_world(dev, tc, grid, N_HLP, "world")
+    phase_world(dev, tc, grid, N_MC, "world-4000")
     ro = phase_rollout(dev)
     fl = phase_flagship(dev)
+    hl = phase_hlp(dev)
+    hw = phase_hlp_world(dev)
     say("result", "all phases passed")
     kernels = [{
         "name": name,
@@ -592,9 +1020,10 @@ def main() -> int:
         "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"],
         "library_ms": None,
-    } for name, k, launches in (("physics_step", k1, ro["launches"]),
-                                ("physics_step_terrain", kt,
-                                 fl["launches"]))]
+    } for name, k, launches in (
+        ("physics_step", k1, ro["launches"]),
+        ("physics_step_terrain", kt, fl["launches"] + hl["launches"]),
+        ("physics_step_terrain_world", kw, hw["launches"]))]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     import torch

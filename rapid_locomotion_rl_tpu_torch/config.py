@@ -382,10 +382,14 @@ class SimCfg:
     contact_iterations: int = 1
     foot_radius: float = 0.02           # collision sphere radius [m]
     joint_friction: float = 0.0
-    # terrain sampling and physics-implementation knobs of the JAX
-    # package: kept so that configs round-trip between the two packages.
-    # The port reads none of them: it runs the plane path only, and picks
-    # its physics step by device (ops/cuda_physics.py: the CUDA kernel for
+    # terrain sampling knobs: the port reads both. terrain_patch_size sets
+    # the window that a physics call looks the grid up through, and
+    # terrain_lookup "mm" lets the env place the 32 x 128 column block
+    # (envs/legged_robot.py::_window_rule, ops/soa_physics.py::
+    # sample_geom_terrain). The physics-implementation knobs below
+    # (physics_impl, pallas_block_sublanes, use_limb_batching) are kept so
+    # that configs round-trip between the two packages; the port picks its
+    # physics step by device (ops/cuda_physics.py: the CUDA kernel for
     # tensors on the card, the plain version for tensors on the CPU).
     terrain_patch_size: int = 16
     terrain_lookup: str = "mm"

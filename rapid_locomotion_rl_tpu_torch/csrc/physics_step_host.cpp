@@ -3,30 +3,38 @@
 // without a GPU (g++ -O2 -shared -fPIC -ffp-contract=off).
 #include "substep_chain.cuh"
 
-template <int D, int K, bool IMP, bool TER>
+template <int D, int K, bool IMP, bool TER, bool WLD>
 static void run_all(const float* x, float* y, const float* cst, int n) {
-  for (int i = 0; i < n; ++i) rl::Chain<D, K, IMP, TER>::run(x, y, cst, n, i);
+  for (int i = 0; i < n; ++i) rl::Chain<D, K, IMP, TER, WLD>::run(x, y, cst, n, i);
+}
+
+template <int D, int K, bool IMP, bool TER>
+static void run_world(const float* x, float* y, const float* cst, int n,
+                      int has_world) {
+  if (has_world) run_all<D, K, IMP, TER, true>(x, y, cst, n);
+  else run_all<D, K, IMP, TER, false>(x, y, cst, n);
 }
 
 template <int D, int K>
 static void run_layout(const float* x, float* y, const float* cst, int n,
-                       int has_imp, int has_terrain) {
-  if (has_imp && has_terrain) run_all<D, K, true, true>(x, y, cst, n);
-  else if (has_imp) run_all<D, K, true, false>(x, y, cst, n);
-  else if (has_terrain) run_all<D, K, false, true>(x, y, cst, n);
-  else run_all<D, K, false, false>(x, y, cst, n);
+                       int has_imp, int has_terrain, int has_world) {
+  if (has_imp && has_terrain) run_world<D, K, true, true>(x, y, cst, n, has_world);
+  else if (has_imp) run_world<D, K, true, false>(x, y, cst, n, has_world);
+  else if (has_terrain) run_world<D, K, false, true>(x, y, cst, n, has_world);
+  else run_world<D, K, false, false>(x, y, cst, n, has_world);
 }
 
 // Returns 0, or 1 for a limb layout that is not compiled.
 extern "C" int rl_physics_step_host(const float* x, float* y,
                                     const float* cst, int n, int D, int K,
-                                    int has_imp, int has_terrain) {
+                                    int has_imp, int has_terrain,
+                                    int has_world) {
   if (D == 3 && K == 4) {
-    run_layout<3, 4>(x, y, cst, n, has_imp, has_terrain);
+    run_layout<3, 4>(x, y, cst, n, has_imp, has_terrain, has_world);
     return 0;
   }
   if (D == 1 && K == 2) {
-    run_layout<1, 2>(x, y, cst, n, has_imp, has_terrain);
+    run_layout<1, 2>(x, y, cst, n, has_imp, has_terrain, has_world);
     return 0;
   }
   return 1;

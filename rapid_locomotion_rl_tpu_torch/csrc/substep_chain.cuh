@@ -5,6 +5,9 @@
 // acceleration and semi-implicit Euler, on the plane z=0 or on terrain: with
 // TER the input holds each geom's terrain height and unit normal, sampled
 // outside the kernel once per call (ops/soa_physics.py::sample_geom_terrain).
+// With WLD every substep also adds the penalty force of every collision
+// sphere against every world box (the walls of the HLP corridor, placed at
+// the env origin that the input holds): ops/soa_physics.py::box_forces_soa.
 //
 // It computes what ops/soa_physics.py::substep_chain computes, operation for
 // operation and in the same order, for ONE env. The same source builds under
@@ -15,9 +18,9 @@
 // that neighbouring threads (envs) read neighbouring addresses. The robot
 // model is a flat float32 table `cst` packed once per model by
 // ops/cuda_physics.py::pack_constants; its layout is the RL_* offsets below.
-// Only the limb layout (D levels x K limbs), the implicit-PD switch and the
-// terrain switch are compile-time constants; loops over bodies and geoms run
-// at run time.
+// Only the limb layout (D levels x K limbs), the implicit-PD switch, the
+// terrain switch and the world switch are compile-time constants; loops over
+// bodies, geoms and boxes run at run time.
 #pragma once
 
 #include <math.h>
@@ -68,7 +71,17 @@
 #define RL_G_REP 1    // report body
 #define RL_G_OFF 2    // offset [3]
 #define RL_G_RAD 5
-#define RL_GEOM 6
+#define RL_G_MEFF 6   // mass of the geom's body (the world force's m_eff)
+#define RL_G_WDEN 7   // 1 + c_n dt / m_eff, in float64 then rounded
+#define RL_GEOM 8
+// world block, after the geoms: constants, then 6 floats per box
+#define RL_W_NBOX 0
+#define RL_W_K 1      // contact stiffness
+#define RL_W_CN 2     // c_n = damping + stiffness dt, in float64 then rounded
+#define RL_W_MU 3     // world friction
+#define RL_W_EPS 4    // friction_vel_eps
+#define RL_W_HDR 8
+#define RL_W_BOX 6    // center [3], half extents [3]
 
 namespace rl {
 
@@ -347,6 +360,56 @@ RL_HD SV solve_psd6(const SM& M, const SV& b) {
   chol6_solve(L, rhs, x);
   return sv(v3(x[0], x[1], x[2]), v3(x[3], x[4], x[5]));
 }
+// ---- world boxes -------------------------------------------------------------
+RL_HD float sign_of(float x) { return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f); }
+
+// Penalty force on one sphere (center pg, velocity vg) against every box of
+// the world block w placed at origin, summed over the boxes in box order.
+// A center inside a box is pushed out through the nearest face: the first
+// axis of least distance to the surface, by the <= chain of the plain version.
+RL_HD V3 world_force(const float* w, V3 origin, V3 pg, V3 vg, float rad,
+                     float m_eff, float den_n, float dt) {
+  const int nbox = (int)w[RL_W_NBOX];
+  const float k = w[RL_W_K], c_n = w[RL_W_CN], wmu = w[RL_W_MU];
+  const float eps = w[RL_W_EPS];
+  V3 total = v3_zero();
+#pragma unroll 1
+  for (int i = 0; i < nbox; ++i) {
+    const float* bx = w + RL_W_HDR + RL_W_BOX * i;
+    float rel[3], delta[3], fd[3];
+    for (int a = 0; a < 3; ++a) {
+      const float h = bx[3 + a];
+      rel[a] = pg.v[a] - (origin.v[a] + bx[a]);
+      const float cl = fminf(fmaxf(rel[a], -h), h);
+      delta[a] = rel[a] - cl;
+      fd[a] = h - fabsf(rel[a]);
+    }
+    const V3 dl = v3(delta[0], delta[1], delta[2]);
+    const float dist = v3_norm(dl, 1e-18f);
+    const bool inside = dist < 1e-6f;
+    const float min_fd = fminf(fd[0], fminf(fd[1], fd[2]));
+    const bool a0 = (fd[0] <= fd[1]) && (fd[0] <= fd[2]);
+    const bool a1 = !a0 && (fd[1] <= fd[2]);
+    const bool a2 = !a0 && !a1;
+    const float inv_d = 1.0f / fmaxf(dist, 1e-6f);
+    const V3 n = inside ? v3(sign_of(rel[0]) * (a0 ? 1.0f : 0.0f),
+                             sign_of(rel[1]) * (a1 ? 1.0f : 0.0f),
+                             sign_of(rel[2]) * (a2 ? 1.0f : 0.0f))
+                        : v3(delta[0] * inv_d, delta[1] * inv_d, delta[2] * inv_d);
+    const float depth = fmaxf(rad - dist, 0.0f) * (inside ? 0.0f : 1.0f)
+                        + (min_fd + rad) * (inside ? 1.0f : 0.0f);
+    const float in_c = depth > 0.0f ? 1.0f : 0.0f;
+    const float v_n = v3_dot(vg, n);
+    const V3 v_t = v3_sub(vg, v3_scale(n, v_n));
+    const float f_n = fmaxf((k * depth - c_n * v_n) / den_n, 0.0f) * in_c;
+    const float vt_norm = v3_norm(v_t, 1e-18f);
+    const float c_t = wmu * f_n / (vt_norm + eps);
+    const float ft_scale = -(c_t / (1.0f + c_t * dt / m_eff));
+    total = v3_add(total, v3_add(v3_scale(n, f_n), v3_scale(v_t, ft_scale)));
+  }
+  return total;
+}
+
 RL_HD SM inv_psd6(const SM& M) {
   float L[6][6], cols[6][6];
   chol6(M, L);
@@ -364,7 +427,7 @@ RL_HD SM inv_psd6(const SM& M) {
 }
 
 // ---- the per-env chain ----------------------------------------------------
-template <int D, int K, bool IMP, bool TER>
+template <int D, int K, bool IMP, bool TER, bool WLD>
 struct Chain {
   static constexpr int NL = D * K;       // limb bodies = joints
   static constexpr int NB = NL + 1;      // + base
@@ -431,6 +494,7 @@ struct Chain {
     const float* cbase = cst + RL_BASE;
     const float* cslot = cst + RL_HDR + RL_BASE_SIZE;
     const float* cgeom = cslot + NL * RL_SLOT;
+    const float* cworld = cgeom + ng * RL_GEOM;
     const size_t N = (size_t)n;
 #define RL_X(ch) x[(size_t)(ch) * N + i]
 #define RL_Y(ch) y[(size_t)(ch) * N + i]
@@ -470,6 +534,12 @@ struct Chain {
     } else {
       g_h[0] = 0.0f;
       g_n[0] = v3(0.0f, 0.0f, 1.0f);  // the plane z=0
+    }
+    // the env origin, after the terrain rows (the TPU kernel's order)
+    V3 origin = v3_zero();
+    if constexpr (WLD) {
+      const int co = cp + 6 + (IMP ? NL : 0) + (TER ? 4 * ng : 0);
+      origin = v3(RL_X(co), RL_X(co + 1), RL_X(co + 2));
     }
 
     // ---- per-body scratch ---------------------------------------------------
@@ -607,9 +677,14 @@ struct Chain {
       }
 
       // ---- per-geom contact solve; forces gathered per body in geom order -----
-      V3 Fw[NB], Nw[NB];
+      // (the world forces in their own sums, added to the ground's after)
+      V3 Fw[NB], Nw[NB], WFw[WLD ? NB : 1], WNw[WLD ? NB : 1];
 #pragma unroll 1
       for (int b = 0; b < NB; ++b) { Fw[b] = v3_zero(); Nw[b] = v3_zero(); }
+      if constexpr (WLD) {
+#pragma unroll 1
+        for (int b = 0; b < NB; ++b) { WFw[b] = v3_zero(); WNw[b] = v3_zero(); }
+      }
 #pragma unroll 1
       for (int g = 0; g < ng; ++g) {
         const float* cg = cgeom + g * RL_GEOM;
@@ -670,13 +745,26 @@ struct Chain {
         }
         Fw[b] = v3_add(Fw[b], gf);
         Nw[b] = v3_add(Nw[b], tq);
+        V3 f_tot = gf;
+        if constexpr (WLD) {
+          // the walls push at the sphere center
+          const V3 wf = world_force(cworld, origin, pg, vg, rad, cg[RL_G_MEFF],
+                                    cg[RL_G_WDEN], dt);
+          WFw[b] = v3_add(WFw[b], wf);
+          WNw[b] = v3_add(WNw[b], v3_cross(v3_sub(pg, p_b[b]), wf));
+          f_tot = v3_add(gf, wf);
+        }
         if (sub == 0) {
           const int rb = (int)cg[RL_G_REP];
-          rep[rb] = v3_add(rep[rb], gf);
+          rep[rb] = v3_add(rep[rb], f_tot);
         }
       }
 #pragma unroll 1
-      for (int b = 0; b < NB; ++b) f_ext[b] = sv(m3_tvec(R_b[b], Nw[b]), m3_tvec(R_b[b], Fw[b]));
+      for (int b = 0; b < NB; ++b) {
+        f_ext[b] = sv(m3_tvec(R_b[b], Nw[b]), m3_tvec(R_b[b], Fw[b]));
+        if constexpr (WLD)
+          f_ext[b] = sv_add(f_ext[b], sv(m3_tvec(R_b[b], WNw[b]), m3_tvec(R_b[b], WFw[b])));
+      }
       if (sub == 0) {
 #pragma unroll 1
         for (int r = 0; r < nr; ++r) {

@@ -14,8 +14,9 @@ Terrain: the plane, or a heightfield/trimesh grid from
 :class:`.terrain.Terrain` with custom env origins, the spawn ranges around
 them, a per-step window into the collision grid that every physics call of
 the step looks up through, the edge teleport and the terrain curriculum.
-Height sensing on a mesh, world obstacles and MJCF assets raise
-``NotImplementedError``.
+With ``cfg.world`` enabled, every physics call also pushes the robot out
+of the 4 walls of a corridor around its env origin (:mod:`.world`).
+Height sensing on a mesh and MJCF assets raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from ..ops.dynamics import PhysParams, SimState
 from . import curriculum as curr
 from . import rewards as R
 from .terrain import Terrain
+from .world import WorldBoxes, default_corridor
 
 
 def get_scale_shift(rng):
@@ -120,8 +122,13 @@ class LeggedRobotEnv:
         if cfg.terrain.mesh_type not in ("plane", "none", "heightfield",
                                          "trimesh"):
             raise ValueError(f"unknown terrain mesh {cfg.terrain.mesh_type}")
+        # the corridor's walls around every env origin, in every physics
+        # call (the JAX env's world_boxes, at the terrain's friction)
+        self.world_boxes: Optional[WorldBoxes] = None
         if cfg.world.enabled:
-            raise NotImplementedError("world obstacles are not ported yet")
+            self.world_boxes = default_corridor(
+                cfg.world.length, cfg.world.width, cfg.world.wall_height,
+                cfg.world.wall_thickness)
         asset_path = cfg.asset.file.format(ROOT=ROOT_DIR)
         if asset_path.endswith(".xml"):
             raise NotImplementedError("MJCF assets are not ported yet")
@@ -561,11 +568,15 @@ class LeggedRobotEnv:
         return torch.cat([cmds[:, :2] * keep.to(cmds.dtype), cmds[:, 2:]],
                          dim=-1)
 
-    def _phys(self, sim, torques, phys_params, imp, window):
+    def _phys(self, sim, torques, phys_params, imp, window, origins):
+        walls = self.world_boxes is not None
         return physics_step_cuda(
             self.model, self.cfg.sim, sim, torques, phys_params,
             terrain=self.collision_grid,
             fixed_base=self.cfg.asset.fix_base_link, implicit_damp=imp,
+            world_boxes=self.world_boxes,
+            env_origin=origins if walls else None,
+            world_friction=self.cfg.terrain.static_friction,
             terrain_window=window)
 
     def _teleport(self, sim: SimState) -> SimState:
@@ -666,7 +677,8 @@ class LeggedRobotEnv:
         for _ in range(cfg.control.decimation):
             torques, target = self._compute_torques(
                 actions, sim, state.dr, last_dof_vel=state.last_dof_vel)
-            out = self._phys(sim, torques, phys_params, imp, window)
+            out = self._phys(sim, torques, phys_params, imp, window,
+                             state.env_origins)
             sim, report = out.state, out.contact_report
 
         episode_length = state.episode_length + 1

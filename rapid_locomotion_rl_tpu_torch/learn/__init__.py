@@ -1,1 +1,1 @@
-"""Policy rollout (PPO's collection half)."""
+"""PPO (rollout, GAE, update), the metric caches and the Runner."""

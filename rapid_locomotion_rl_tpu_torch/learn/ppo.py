@@ -1,7 +1,8 @@
 """PPO with teacher-student distillation (port of the JAX package's
 ``learn/ppo.py``).
 
-- :func:`rollout` collects the 24-step horizon under the teacher policy;
+- :func:`rollout` collects the horizon under the teacher policy (the
+  eval envs past ``num_train_envs`` act deterministically);
 - :func:`compute_gae` is the reverse GAE sweep;
 - :func:`ppo_update` runs 5 epochs x 4 minibatches over the train envs'
   transitions with one permutation reused across the epochs, the
@@ -91,14 +92,15 @@ class Transition(NamedTuple):
 
 @torch.no_grad()
 def rollout(env, ac: ActorCritic, ppo_args: PPOArgs, env_state, sampler,
-            num_steps: int
+            num_steps: int, eval_expert: bool = False
             ) -> Tuple[Any, Transition, Dict[str, torch.Tensor]]:
-    """Collect ``num_steps`` transitions with the current policy: every env
-    acts stochastically through the teacher policy. Returns the final env
-    state, the stacked transitions [T, N, ...] and the stacked scalar step
-    metrics [T]. Deterministic eval envs are not ported yet."""
-    if env.num_eval_envs > 0:
-        raise NotImplementedError("eval envs are not ported yet")
+    """Collect ``num_steps`` transitions with the current policy. Train envs
+    act stochastically through the teacher policy; eval envs (those past
+    ``env.num_train_envs``) act deterministically, through the teacher
+    (``eval_expert``) or the student. Returns the final env state, the
+    stacked transitions [T, N, ...] and the stacked scalar step metrics
+    [T]."""
+    n_train = env.num_train_envs
     steps: List[Transition] = []
     infos: List[Dict[str, torch.Tensor]] = []
     for _ in range(num_steps):
@@ -111,7 +113,13 @@ def rollout(env, ac: ActorCritic, ppo_args: PPOArgs, env_state, sampler,
         sampled = mean + std * noise
         values = ac.evaluate(obs, priv)
         log_prob = normal_log_prob(mean, std, sampled)
-        actions = sampled
+        if env.num_eval_envs > 0:
+            det = (ac.act_teacher(obs, priv) if eval_expert
+                   else ac.act_student(obs, hist))
+            idx = torch.arange(obs.shape[0], device=obs.device)[:, None]
+            actions = torch.where(idx < n_train, sampled, det)
+        else:
+            actions = sampled
 
         env_state, res = env.step(env_state, actions, sampler)
         # timeout bootstrap
@@ -308,14 +316,15 @@ def _sync(device):
 
 def train_iteration(env, ac: ActorCritic, ppo_args: PPOArgs, env_state,
                     ppo_state: PPOState, sampler, entropy_coef=None,
-                    num_steps: int = 24, timings: Optional[Dict] = None):
+                    num_steps: int = 24, timings: Optional[Dict] = None,
+                    eval_expert: bool = False):
     """One training iteration: rollout, GAE, update. Returns the new env
     state, the new PPO state and the rollout and update metrics. With
     ``timings`` (a dict), the device is synchronised after each half and
     their wall times are stored under ``rollout_s`` and ``update_s``."""
     t0 = time.perf_counter()
     env_state, traj, infos = rollout(env, ac, ppo_args, env_state, sampler,
-                                     num_steps)
+                                     num_steps, eval_expert)
     with torch.no_grad():
         last_values = ac.evaluate(env_state.obs, env_state.privileged_obs)
     adv, ret = compute_gae(traj, last_values, ppo_args.gamma, ppo_args.lam)

@@ -53,6 +53,14 @@ class MLP(nn.Module):
         self.layers = nn.ModuleList(
             nn.Linear(a, b) for a, b in zip(dims[:-1], dims[1:]))
         self.act = _ACTIVATIONS[act]
+        # Flax Dense's initialisation: LeCun normal kernels (a normal of
+        # variance 1/fan_in truncated at two standard deviations, rescaled
+        # to keep that variance) and zero biases
+        for layer in self.layers:
+            std = math.sqrt(1.0 / layer.in_features) / .87962566103423978
+            nn.init.trunc_normal_(layer.weight, std=std, a=-2 * std,
+                                  b=2 * std)
+            nn.init.zeros_(layer.bias)
 
     def forward(self, x):
         for layer in self.layers[:-1]:

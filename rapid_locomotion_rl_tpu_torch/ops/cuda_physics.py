@@ -12,20 +12,22 @@ The kernel library is built at first use by ``nvcc`` into
 sources have a plain C interface and include no PyTorch header, so the
 build takes seconds. Only the variants the env runs are built for the
 card: the quadruped limb layout (3 x 4) with the implicit-damping input, on
-the plane (Go1) and on terrain (Mini Cheetah, trimesh). The same per-env
-body also builds with ``g++`` into a CPU library, in every variant
+the plane (Go1), on terrain (Mini Cheetah, trimesh), and on terrain with
+the world boxes of the HLP corridor. The same per-env body also builds
+with ``g++`` into a CPU library, in every variant
 (:func:`build_host_library`), which the CPU tests hold against the plain
 version.
 
 Layout: the wrapper packs the inputs into one [C_in, N] float32 array,
 channel-major (state 13+2nv, tau nv, payload 1, CoM shift 3, restitution 1,
 mixed friction 1, then implicit damping nv when given, then with terrain
-the height under each geom ng and its normal 3ng), and unpacks the
-[13+2nv+3nr+3ng, N] output. The terrain rows come from plain gathers into
-the height grid at the call's entry state
-(:func:`.soa_physics.sample_geom_terrain`), as the JAX package samples them
-outside its kernel. The robot model is a flat float32 table packed
-once per (model, sim config, device) by :func:`pack_constants`.
+the height under each geom ng and its normal 3ng, then with world boxes
+the env origin 3), and unpacks the [13+2nv+3nr+3ng, N] output. The
+terrain rows come from plain gathers into the height grid at the call's
+entry state (:func:`.soa_physics.sample_geom_terrain`), as the JAX
+package samples them outside its kernel. The robot model, the solver
+constants and the world boxes are a flat float32 table packed once per
+(model, sim config, boxes, device) by :func:`pack_constants`.
 """
 
 from __future__ import annotations
@@ -44,8 +46,9 @@ import torch
 from .. import ROOT_DIR
 from .dynamics import PhysParams, SimState
 from .limb_dynamics import LimbLayout, np_spatial_inertia
-from .physics import StepOutput
+from .world import WorldBoxes
 from .contact import TerrainGrid, Window
+from .physics import StepOutput
 from .soa_physics import (_v3, check_supported, physics_step_soa,
                           sample_geom_terrain, static_friction)
 
@@ -62,7 +65,9 @@ HOST_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC", "-ffp-contract=off",
 HDR = 16
 BASE_SIZE = 12
 SLOT = 66
-GEOM = 6
+GEOM = 8
+W_HDR = 8
+W_BOX = 6
 MAX_NG = 64
 MAX_NR = 32
 LAYOUTS = ((3, 4), (1, 2))   # (D, K) instantiated in the host source
@@ -128,15 +133,18 @@ def load_host_library(path: str):
     fn = lib.rl_physics_step_host
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int]
+                   ctypes.c_int, ctypes.c_int]
     fn.restype = ctypes.c_int
     return lib
 
 
-def pack_constants(model, sim_cfg, layout: LimbLayout) -> np.ndarray:
-    """Flat float32 table of the robot model and the solver constants.
-    Products of constants are formed in float64 and rounded once, as the
-    plain version forms them in python floats."""
+def pack_constants(model, sim_cfg, layout: LimbLayout,
+                   world_boxes: Optional[WorldBoxes] = None,
+                   world_friction: float = 1.0) -> np.ndarray:
+    """Flat float32 table of the robot model, the solver constants and the
+    world boxes (none: a world block of 0 boxes). Products of constants are
+    formed in float64 and rounded once, as the plain version forms them in
+    python floats."""
     D, K = layout.D, layout.K
     if (D, K) not in LAYOUTS:
         raise NotImplementedError(f"limb layout {D}x{K} is not compiled")
@@ -146,7 +154,9 @@ def pack_constants(model, sim_cfg, layout: LimbLayout) -> np.ndarray:
     nsub = max(int(sim_cfg.num_substeps), 1)
     dt = sim_cfg.dt / nsub
     parent = np.asarray(model.parent)
-    t = np.zeros(HDR + BASE_SIZE + D * K * SLOT + model.ng * GEOM)
+    nbox = 0 if world_boxes is None else int(world_boxes.centers.shape[0])
+    t = np.zeros(HDR + BASE_SIZE + D * K * SLOT + model.ng * GEOM + W_HDR
+                 + nbox * W_BOX)
     t[0:14] = [nsub, dt, 1.0 / dt, 0.5 * dt, float(sim_cfg.gravity[2]),
                sim_cfg.erp / dt, sim_cfg.max_depenetration_velocity,
                sim_cfg.bounce_threshold_velocity, sim_cfg.joint_friction,
@@ -181,20 +191,31 @@ def pack_constants(model, sim_cfg, layout: LimbLayout) -> np.ndarray:
             if d > 0:
                 assert parent[b] == int(layout.body_index[d - 1, k])
     go = HDR + BASE_SIZE + D * K * SLOT
+    c_n = sim_cfg.contact_damping + sim_cfg.contact_stiffness * dt
     for g in range(model.ng):
         o = go + g * GEOM
-        t[o:o + 6] = [slot_of_body[int(model.geom_body[g])],
+        m_eff = float(model.mass[int(model.geom_body[g])])
+        t[o:o + 8] = [slot_of_body[int(model.geom_body[g])],
                       model.geom_report_body[g], *model.geom_offset[g],
-                      model.geom_radius[g]]
+                      model.geom_radius[g], m_eff, 1.0 + c_n * dt / m_eff]
+    wo = go + model.ng * GEOM
+    t[wo:wo + 5] = [nbox, sim_cfg.contact_stiffness, c_n, world_friction,
+                    sim_cfg.friction_vel_eps]
+    if nbox:
+        boxes = np.concatenate(
+            [world_boxes.centers.detach().cpu().double().numpy(),
+             world_boxes.half_extents.detach().cpu().double().numpy()], -1)
+        t[wo + W_HDR:] = boxes.reshape(-1)
     return t.astype(np.float32)
 
 
 def pack_inputs(model, state: SimState, tau, params: PhysParams,
                 implicit_damp, terrain: Optional[TerrainGrid] = None,
-                geom_terrain=None) -> torch.Tensor:
+                geom_terrain=None, env_origin=None) -> torch.Tensor:
     """[C_in, N] float32 channel-major input of the kernel. With a terrain
     grid, ``geom_terrain`` is (height [N, ng], normal [N, ng, 3]) under
-    each geom (:func:`.soa_physics.sample_geom_terrain`)."""
+    each geom (:func:`.soa_physics.sample_geom_terrain`); with world boxes,
+    ``env_origin`` [N, 3] places them."""
     chans = [state.base_pos.T, state.base_quat.T, state.base_lin_vel.T,
              state.base_ang_vel.T, state.q.T, state.qd.T, tau.T,
              params.payload[None], params.com_displacement.T,
@@ -205,6 +226,8 @@ def pack_inputs(model, state: SimState, tau, params: PhysParams,
     if terrain is not None:
         hh, nn = geom_terrain
         chans += [hh.T, nn.reshape(nn.shape[0], -1).T]
+    if env_origin is not None:
+        chans.append(env_origin.T)
     return torch.cat(chans, dim=0).contiguous()
 
 
@@ -232,7 +255,7 @@ def unpack_outputs(model, y: torch.Tensor) -> StepOutput:
 
 
 def _check_inputs(model, state, tau, params, implicit_damp, device,
-                  terrain=None):
+                  terrain=None, env_origin=None):
     N = state.q.shape[0]
     want = {
         "base_pos": (state.base_pos, (N, 3)),
@@ -249,6 +272,8 @@ def _check_inputs(model, state, tau, params, implicit_damp, device,
     }
     if implicit_damp is not None:
         want["implicit_damp"] = (implicit_damp, (N, model.nv))
+    if env_origin is not None:
+        want["env_origin"] = (env_origin, (N, 3))
     for name, (t, shape) in want.items():
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, expected {device}")
@@ -266,16 +291,23 @@ def _check_inputs(model, state, tau, params, implicit_damp, device,
         raise ValueError("no envs")
 
 
+def _check_world(world_boxes, env_origin):
+    if (world_boxes is None) != (env_origin is None):
+        raise ValueError("world boxes and env origins go together")
+
+
 class PhysicsStepKernel:
     """The built CUDA library, the constant tables, and the launch counts.
 
     ``launches`` grows by one at each kernel launch and nowhere else;
     ``terrain_launches`` counts the launches of the terrain variant among
-    them."""
+    them, and ``world_launches`` those of the terrain + world variant (also
+    counted as terrain launches)."""
 
     def __init__(self):
         self.launches = 0
         self.terrain_launches = 0
+        self.world_launches = 0
         self.build_log = ""
         self.library_path = None
         self._fn = None
@@ -289,29 +321,38 @@ class PhysicsStepKernel:
             fn = lib.rl_physics_step
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                            ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                           ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_void_p]
             fn.restype = ctypes.c_int
             self._lib, self._fn = lib, fn
             self.library_path, self.build_log = path, log
         return self._fn
 
-    def table(self, model, sim_cfg, layout, device) -> torch.Tensor:
+    def table(self, model, sim_cfg, layout, device,
+              world_boxes: Optional[WorldBoxes] = None,
+              world_friction: float = 1.0) -> torch.Tensor:
+        boxes = (None if world_boxes is None else tuple(
+            torch.cat([world_boxes.centers, world_boxes.half_extents], -1)
+            .reshape(-1).tolist()))
         key = (id(model), device, sim_cfg.dt, sim_cfg.num_substeps,
                tuple(sim_cfg.gravity), sim_cfg.erp,
                sim_cfg.max_depenetration_velocity,
                sim_cfg.bounce_threshold_velocity, sim_cfg.joint_friction,
-               getattr(sim_cfg, "torsional_patch_radius", 0.0))
+               getattr(sim_cfg, "torsional_patch_radius", 0.0),
+               sim_cfg.contact_stiffness, sim_cfg.contact_damping,
+               sim_cfg.friction_vel_eps, boxes, world_friction)
         hit = self._tables.get(key)
         # the entry keeps the model alive, so its id cannot be reused
         if hit is None or hit[0] is not model:
-            t = torch.from_numpy(pack_constants(model, sim_cfg, layout))
+            t = torch.from_numpy(pack_constants(model, sim_cfg, layout,
+                                                world_boxes, world_friction))
             hit = (model, t.to(device))
             self._tables[key] = hit
         return hit[1]
 
     def launch_packed(self, x: torch.Tensor, y: torch.Tensor,
                       cst: torch.Tensor, layout: LimbLayout, has_imp: bool,
-                      has_terrain: bool = False):
+                      has_terrain: bool = False, has_world: bool = False):
         """Launch on packed [C_in, N] input and [C_out, N] output arrays on
         the current stream; raises if the launch is refused."""
         if (layout.D, layout.K) != CUDA_LAYOUT or not has_imp:
@@ -319,6 +360,9 @@ class PhysicsStepKernel:
                 f"the CUDA kernel is built for limb layout {CUDA_LAYOUT} with "
                 f"implicit damping given (zeros for none), not "
                 f"{layout.D}x{layout.K} with has_imp={has_imp}")
+        if has_world and not has_terrain:
+            raise NotImplementedError(
+                "the CUDA kernel's world variant is built on terrain only")
         for t in (x, y, cst):
             if (t.device.type != "cuda" or t.dtype != torch.float32
                     or not t.is_contiguous()):
@@ -331,26 +375,31 @@ class PhysicsStepKernel:
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(y.data_ptr()),
                  ctypes.c_void_p(cst.data_ptr()), x.shape[1], layout.D,
-                 layout.K, int(has_imp), int(has_terrain),
+                 layout.K, int(has_imp), int(has_terrain), int(has_world),
                  ctypes.c_void_p(stream))
         if err != 0:
             raise RuntimeError(f"physics kernel launch failed: cudaError {err}")
         self.launches += 1
         self.terrain_launches += int(has_terrain)
+        self.world_launches += int(has_world)
 
     def __call__(self, model, sim_cfg, state, tau, params, implicit_damp,
-                 layout, terrain=None, terrain_window=None) -> StepOutput:
+                 layout, terrain=None, terrain_window=None, world_boxes=None,
+                 env_origin=None, world_friction=1.0) -> StepOutput:
         device = state.q.device
+        _check_world(world_boxes, env_origin)
         _check_inputs(model, state, tau, params, implicit_damp, device,
-                      terrain)
-        cst = self.table(model, sim_cfg, layout, device)
+                      terrain, env_origin)
+        cst = self.table(model, sim_cfg, layout, device, world_boxes,
+                         world_friction)
         gt = (None if terrain is None else geom_terrain_at(
             model, sim_cfg, layout, state, terrain, terrain_window))
-        x = pack_inputs(model, state, tau, params, implicit_damp, terrain, gt)
+        x = pack_inputs(model, state, tau, params, implicit_damp, terrain, gt,
+                        env_origin)
         y = torch.empty((out_channels(model), x.shape[1]),
                         dtype=torch.float32, device=device)
         self.launch_packed(x, y, cst, layout, implicit_damp is not None,
-                           terrain is not None)
+                           terrain is not None, world_boxes is not None)
         return unpack_outputs(model, y)
 
 
@@ -374,40 +423,53 @@ def physics_step_cuda(
     """One control-step physics call: the CUDA kernel for tensors on the
     card, the plain version for tensors on the CPU. ``terrain_window`` is
     the env's hoisted per-step window into the grid
-    (:func:`.soa_physics.sample_geom_terrain`)."""
+    (:func:`.soa_physics.sample_geom_terrain`); ``world_boxes`` sit at each
+    env's ``env_origin``."""
     layout = check_supported(model, sim_cfg, fixed_base, terrain, world_boxes)
+    _check_world(world_boxes, env_origin)
     device = state.q.device
     if device.type == "cpu":
         return physics_step_soa(model, sim_cfg, state, tau, params,
                                 terrain=terrain, implicit_damp=implicit_damp,
+                                world_boxes=world_boxes,
+                                env_origin=env_origin,
+                                world_friction=world_friction,
                                 terrain_window=terrain_window)
     if device.type != "cuda":
         raise ValueError(f"no physics step for device {device}")
     return KERNEL(model, sim_cfg, state, tau, params, implicit_damp, layout,
-                  terrain, terrain_window)
+                  terrain, terrain_window, world_boxes, env_origin,
+                  world_friction)
 
 
 def physics_step_host(lib, model, sim_cfg, state: SimState, tau,
                       params: PhysParams,
                       implicit_damp: Optional[torch.Tensor] = None,
                       terrain: Optional[TerrainGrid] = None,
-                      terrain_window: Optional[Window] = None
-                      ) -> StepOutput:
+                      terrain_window: Optional[Window] = None,
+                      world_boxes: Optional[WorldBoxes] = None,
+                      env_origin: Optional[torch.Tensor] = None,
+                      world_friction: float = 1.0) -> StepOutput:
     """The kernel's per-env body built for the CPU (``lib`` from
     :func:`load_host_library`), on CPU tensors, through the same packing."""
-    layout = check_supported(model, sim_cfg, terrain=terrain)
+    layout = check_supported(model, sim_cfg, terrain=terrain,
+                             world_boxes=world_boxes)
+    _check_world(world_boxes, env_origin)
     _check_inputs(model, state, tau, params, implicit_damp,
-                  torch.device("cpu"), terrain)
-    cst = torch.from_numpy(pack_constants(model, sim_cfg, layout))
+                  torch.device("cpu"), terrain, env_origin)
+    cst = torch.from_numpy(pack_constants(model, sim_cfg, layout,
+                                          world_boxes, world_friction))
     gt = (None if terrain is None else geom_terrain_at(
         model, sim_cfg, layout, state, terrain, terrain_window))
-    x = pack_inputs(model, state, tau, params, implicit_damp, terrain, gt)
+    x = pack_inputs(model, state, tau, params, implicit_damp, terrain, gt,
+                    env_origin)
     N = x.shape[1]
     y = torch.empty((out_channels(model), N), dtype=torch.float32)
     err = lib.rl_physics_step_host(
         ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(y.data_ptr()),
         ctypes.c_void_p(cst.data_ptr()), N, layout.D, layout.K,
-        int(implicit_damp is not None), int(terrain is not None))
+        int(implicit_damp is not None), int(terrain is not None),
+        int(world_boxes is not None))
     if err != 0:
         raise RuntimeError(f"host physics step refused layout "
                            f"{layout.D}x{layout.K}")

@@ -10,11 +10,14 @@ bound in :mod:`.cuda_physics`) computes the same function for one env per
 thread; this module is what it is held against, and what the CPU runs.
 
 It covers the apparent-inertia contact model with a floating base, on the
-plane z=0 or on a terrain height grid. With a grid, the height and normal
-under every geom are looked up once per call at the entry state
+plane z=0 or on a terrain height grid, optionally with world boxes (the
+walls of the HLP corridor, :mod:`.world`). With a grid, the height
+and normal under every geom are looked up once per call at the entry state
 (:func:`sample_geom_terrain`, plain gathers) and enter the chain as inputs,
-as they enter the kernel. World boxes, the legacy contact model and a fixed
-base raise ``NotImplementedError``.
+as they enter the kernel. With world boxes, every substep adds the penalty
+force of every sphere against every box (:func:`box_forces_soa`), and each
+env's origin enters the chain as an input. The legacy contact model and a
+fixed base raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import numpy as np
 import torch
 
 from . import soa as S
+from .world import WorldBoxes
 from .contact import (TerrainGrid, Window, square_window,
                       terrain_height_and_normal)
 from .dynamics import PhysParams, SimState
@@ -55,8 +59,9 @@ def check_supported(model, sim_cfg, fixed_base=False, terrain=None,
     if terrain is not None and not isinstance(terrain, TerrainGrid):
         raise TypeError(f"terrain must be a TerrainGrid, not "
                         f"{type(terrain).__name__}")
-    if world_boxes is not None:
-        raise NotImplementedError("world boxes are not ported yet")
+    if world_boxes is not None and not isinstance(world_boxes, WorldBoxes):
+        raise TypeError(f"world_boxes must be WorldBoxes, not "
+                        f"{type(world_boxes).__name__}")
     if fixed_base:
         raise NotImplementedError("a fixed base is not ported yet")
     if getattr(sim_cfg, "contact_model", "apparent") != "apparent":
@@ -94,7 +99,60 @@ def fk_geom_xy(model, layout: LimbLayout, base_pos, base_quat, q
     return out
 
 
-def substep_chain(model, sim_cfg, layout: LimbLayout, comps: Dict) -> Dict:
+def box_forces_soa(world_boxes: WorldBoxes, origin, pg, vg, radius: float,
+                   m_eff: float, sim_cfg, friction: float, dt: float):
+    """World-box penalty force on one sphere (v3 of [N] tensors), summed
+    over the boxes: the JAX package's ``_box_forces_soa``, operation for
+    operation. ``origin``, ``pg`` and ``vg`` are v3 tuples (env origin,
+    sphere center and velocity); ``m_eff`` is the mass of the geom's body.
+    A sphere whose center lies inside a box is pushed out through the
+    nearest face (the first axis of least distance, by a ``<=`` chain)."""
+    centers = world_boxes.centers.detach().cpu().double().numpy()
+    halfs = world_boxes.half_extents.detach().cpu().double().numpy()
+    stiffness = sim_cfg.contact_stiffness
+    c_n = sim_cfg.contact_damping + stiffness * dt
+    # the two divisors as float32 tensors on the device: PyTorch divides
+    # a CUDA tensor by a python float as a product with its reciprocal,
+    # one rounding off the true quotient that JAX and the kernel take
+    den_n = pg[0].new_tensor(1.0 + c_n * dt / m_eff)
+    m_eff_t = pg[0].new_tensor(m_eff)
+    total = None
+    for i in range(centers.shape[0]):
+        h = [float(halfs[i, a]) for a in range(3)]
+        rel = tuple(pg[a] - (origin[a] + float(centers[i, a]))
+                    for a in range(3))
+        cl = tuple(S.clip(rel[a], -h[a], h[a]) for a in range(3))
+        delta = tuple(rel[a] - cl[a] for a in range(3))
+        dist = S.v3_norm(delta, 1e-18)
+        inside = dist < 1e-6
+        fd = tuple(h[a] - torch.abs(rel[a]) for a in range(3))
+        min_fd = S.minimum(fd[0], S.minimum(fd[1], fd[2]))
+        a0 = (fd[0] <= fd[1]) & (fd[0] <= fd[2])
+        a1 = ~a0 & (fd[1] <= fd[2])
+        a2 = ~a0 & ~a1
+        face_n = (torch.sign(rel[0]) * a0, torch.sign(rel[1]) * a1,
+                  torch.sign(rel[2]) * a2)
+        inv_d = 1.0 / S.maximum(dist, 1e-6)
+        n = tuple(torch.where(inside, face_n[a], delta[a] * inv_d)
+                  for a in range(3))
+        depth = (S.maximum(radius - dist, 0.0) * ~inside
+                 + (min_fd + radius) * inside)
+        in_c = depth > 0.0
+        v_n = S.v3_dot(vg, n)
+        v_t = S.v3_sub(vg, S.v3_scale(n, v_n))
+        f_n = S.maximum((stiffness * depth - c_n * v_n) / den_n,
+                        0.0) * in_c
+        vt_norm = S.v3_norm(v_t, 1e-18)
+        c_t = friction * f_n / (vt_norm + sim_cfg.friction_vel_eps)
+        ft_scale = -(c_t / (1.0 + c_t * dt / m_eff_t))
+        f = S.v3_add(S.v3_scale(n, f_n), S.v3_scale(v_t, ft_scale))
+        total = f if total is None else S.v3_add(total, f)
+    return total
+
+
+def substep_chain(model, sim_cfg, layout: LimbLayout, comps: Dict,
+                  world_boxes: Optional[WorldBoxes] = None,
+                  world_friction: float = 1.0) -> Dict:
     """``num_substeps`` physics substeps as one elementwise chain.
 
     ``comps`` holds same-shaped [N] tensors:
@@ -106,6 +164,7 @@ def substep_chain(model, sim_cfg, layout: LimbLayout, comps: Dict) -> Dict:
     - ``g_h``/``g_n``: optional per-geom terrain height (list of ng
       tensors) and unit normal (list of ng v3 tuples); without them the
       ground is the plane z=0
+    - ``origin``: v3 of the env origins, with ``world_boxes``
 
     Returns the updated state components plus
     ``report`` (list of nr v3, world contact force per report body at
@@ -468,13 +527,31 @@ def substep_chain(model, sim_cfg, layout: LimbLayout, comps: Dict) -> Dict:
 
         f_ext = gather_f_ext(g_force, g_cp, g_tq)
 
+        # ---- world boxes: penalty forces on the same spheres, applied at
+        # the sphere centers, added after the ground contact ---------------
+        g_wf = None
+        if world_boxes is not None:
+            origin = comps["origin"]
+            g_wf = [box_forces_soa(
+                world_boxes, origin, g_pos[g], g_vel[g],
+                float(model.geom_radius[g]),
+                float(model.mass[int(model.geom_body[g])]), sim_cfg,
+                world_friction, dt) for g in range(model.ng)]
+            w_ext = gather_f_ext(g_wf, g_pos, [None] * model.ng)
+            for b in range(model.nb):
+                if w_ext[b] is not None:
+                    f_ext[b] = (w_ext[b] if f_ext[b] is None
+                                else S.sv_add(f_ext[b], w_ext[b]))
+
         if sub == 0:
-            # contact report per report body (world frame)
+            # contact report per report body (world frame), walls included
             rep = [None] * model.nr
             for g in range(model.ng):
                 rb = int(model.geom_report_body[g])
-                rep[rb] = (g_force[g] if rep[rb] is None
-                           else S.v3_add(rep[rb], g_force[g]))
+                f_tot = (g_force[g] if g_wf is None
+                         else S.v3_add(g_force[g], g_wf[g]))
+                rep[rb] = (f_tot if rep[rb] is None
+                           else S.v3_add(rep[rb], f_tot))
             zeros = base_pos[0] * 0.0
             report0 = [r_ if r_ is not None else (zeros, zeros, zeros)
                        for r_ in rep]
@@ -536,14 +613,16 @@ def physics_step_soa(
     terrain: Optional[TerrainGrid] = None,
     fixed_base: bool = False,
     implicit_damp: Optional[torch.Tensor] = None,   # [N,nv] Kd_eff+dt*Kp_eff
-    world_boxes=None,
-    env_origin: Optional[torch.Tensor] = None,
+    world_boxes: Optional[WorldBoxes] = None,
+    env_origin: Optional[torch.Tensor] = None,     # [N,3] for world_boxes
     world_friction: float = 1.0,
     terrain_window: Optional[Window] = None,
 ) -> StepOutput:
     """One control-step physics call (``num_substeps`` substeps) for a
     batch of envs, in plain PyTorch on any device. ``terrain_window`` is
-    the env's hoisted per-step window (see :func:`sample_geom_terrain`)."""
+    the env's hoisted per-step window (see :func:`sample_geom_terrain`);
+    ``world_boxes`` are placed at each env's ``env_origin`` and collide
+    with the spheres at ``world_friction``."""
     layout = check_supported(model, sim_cfg, fixed_base, terrain, world_boxes)
     base_pos = _v3(state.base_pos)
     base_quat = tuple(state.base_quat[:, i] for i in range(4))
@@ -569,7 +648,10 @@ def physics_step_soa(
         comps["g_h"] = [hh[:, g] for g in range(model.ng)]
         comps["g_n"] = [(nn[:, g, 0], nn[:, g, 1], nn[:, g, 2])
                         for g in range(model.ng)]
-    out = substep_chain(model, sim_cfg, layout, comps)
+    if world_boxes is not None:
+        comps["origin"] = _v3(env_origin)
+    out = substep_chain(model, sim_cfg, layout, comps, world_boxes,
+                        world_friction)
 
     new_state = SimState(
         base_pos=_stack_v3(out["base_pos"]),

@@ -1,1 +1,1 @@
-"""Checkpoint loading."""
+"""Checkpoints and the metrics logger."""

@@ -12,18 +12,27 @@ from rapid_locomotion_rl_tpu import RLTPU_ROOT_DIR
 PORT = os.path.join(RLTPU_ROOT_DIR, "rapid_locomotion_rl_tpu_torch")
 SMOKE = os.path.join(RLTPU_ROOT_DIR, "chip_smoke.py")
 
+SCRIPTS = [os.path.join(RLTPU_ROOT_DIR, "scripts", f)
+           for f in sorted(os.listdir(os.path.join(RLTPU_ROOT_DIR,
+                                                   "scripts")))
+           if f.startswith("torch_") or f.endswith("_cuda.py")]
+
 PROBE = r"""
+import importlib.util
 import sys
 import chip_smoke
 import rapid_locomotion_rl_tpu_torch
 from rapid_locomotion_rl_tpu_torch import config, convert, sampler
-from rapid_locomotion_rl_tpu_torch.envs import (curriculum, legged_robot,
-    rewards, terrain)
-from rapid_locomotion_rl_tpu_torch.learn import ppo
+from rapid_locomotion_rl_tpu_torch.envs import (curriculum, hlp,
+    legged_robot, rewards, terrain, world)
+from rapid_locomotion_rl_tpu_torch.learn import caches, ppo, runner
 from rapid_locomotion_rl_tpu_torch.models import networks, robot_model, urdf
 from rapid_locomotion_rl_tpu_torch.ops import (contact, cuda_physics,
-    dynamics, limb_dynamics, physics, quat, soa, soa_physics)
-from rapid_locomotion_rl_tpu_torch.utils import checkpoint
+    dynamics, limb_dynamics, physics, quat, soa, soa_physics, world)
+from rapid_locomotion_rl_tpu_torch.utils import checkpoint, logger
+spec = importlib.util.spec_from_file_location(
+    "hlpc", "scripts/high_level_play_cuda.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
              if m in ("jax", "flax", "optax", "rapid_locomotion_rl_tpu")
              or m.startswith(("jax.", "jaxlib", "flax.", "optax.",
@@ -43,10 +52,24 @@ def test_port_imports_no_jax():
 def test_no_jax_import_lines():
     pat = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|"
                      r"rapid_locomotion_rl_tpu)(\.|\s|$)")
-    files = [SMOKE] + [os.path.join(d, f) for d, _, fs in os.walk(PORT)
-                       for f in fs if f.endswith(".py")]
+    files = [SMOKE] + SCRIPTS + [os.path.join(d, f)
+                                 for d, _, fs in os.walk(PORT)
+                                 for f in fs if f.endswith(".py")]
     hits = [f"{p}:{i}: {line.rstrip()}" for p in files
             for i, line in enumerate(open(p), 1) if pat.match(line)]
+    assert not hits, hits
+
+
+def test_ops_import_nothing_of_envs():
+    """The physics layer sits below the env: no module of ``ops/`` imports
+    from ``envs/`` (the world boxes live in ``ops/world.py``)."""
+    pat = re.compile(r"^\s*(from|import)\s+(\.\.envs|rapid_locomotion_rl_tpu"
+                     r"_torch\.envs)(\.|\s|$)")
+    ops = os.path.join(PORT, "ops")
+    hits = [f"{f}:{i}: {line.rstrip()}" for f in sorted(os.listdir(ops))
+            if f.endswith(".py")
+            for i, line in enumerate(open(os.path.join(ops, f)), 1)
+            if pat.match(line)]
     assert not hits, hits
 
 

@@ -5,7 +5,9 @@ as the CUDA wrapper; and the kernel itself on a card (``gpu`` marker).
 Same arithmetic in the same order: flight and hopper states agree to the
 tolerances of tests/test_pallas_physics.py (2e-5 on state, 2e-4/2e-3 on
 contact reports, 1e-5 on geom positions); grounded Go1 states by the bulk
-rule of tests/test_soa_physics.py."""
+rule of tests/test_soa_physics.py. Every variant of the host build is held
+to the plain version: plane or terrain, with or without the implicit-PD
+input, with or without the world boxes of the HLP corridor."""
 
 import re
 import shutil
@@ -18,9 +20,11 @@ from rapid_locomotion_rl_tpu_torch.config import SimCfg
 from rapid_locomotion_rl_tpu_torch.models import load_urdf
 from rapid_locomotion_rl_tpu_torch.ops import cuda_physics as CP
 from rapid_locomotion_rl_tpu_torch.ops.soa_physics import physics_step_soa
+from rapid_locomotion_rl_tpu_torch.envs.world import default_corridor
 from torch_port_helpers import (GO1, MC, TINY, assert_step_close,
-                                generated_grid, on_terrain, physics_inputs,
-                                step_grid, torch_inputs)
+                                assert_step_close_walls, generated_grid,
+                                near_walls, on_terrain, physics_inputs,
+                                step_grid, torch_inputs, wall_depth)
 
 
 @pytest.fixture(scope="module")
@@ -91,6 +95,90 @@ def test_host_kernel_terrain_matches_plain(host_lib, models, robot, kind,
     assert_step_close(ref, out, kind)
 
 
+@pytest.mark.parametrize("robot,kind,with_imp,terrain", [
+    ("hopper", "hopper", False, False),
+    ("hopper", "hopper", True, False),
+    ("hopper", "hopper", False, True),
+    ("hopper", "hopper", True, True),
+    ("mc", "flight", True, False),
+    ("mc", "flight", False, True),
+    ("mc", "ground", False, False),
+    ("mc", "ground", True, True),
+])
+def test_host_kernel_world_matches_plain(host_lib, models, robot, kind,
+                                         with_imp, terrain):
+    """The world variant: the hopper's states in the 1.2 x 0.5 m corridor
+    of tests/test_pallas_physics.py::test_pallas_world_boxes (at the
+    origin; on the step grid for the terrain cases); Mini Cheetah in the
+    default corridor around origins spread over the plane or the generated
+    grid, its spheres clear of, touching, crossing and inside the walls
+    (flight at 0.75 m, inside the walls' height). Flight and hopper states
+    clear of the walls agree strictly, those in a wall at the strict
+    tolerances in bulk; grounded states by the bulk rule."""
+    model = models[robot]
+    n = 200 if robot == "hopper" else 64
+    state, params, tau, imp = physics_inputs(model, n, 10, kind)
+    if robot == "hopper":
+        boxes = default_corridor(1.2, 0.5, wall_height=1.0)
+        origins = np.zeros((n, 3), np.float32)
+        grid = step_grid()[1] if terrain else None
+    else:
+        boxes = default_corridor()
+        state, origins = near_walls(state, 11, 0.75 if kind == "flight"
+                                    else None)
+        grid = None
+        if terrain:
+            grid = generated_grid()[1]
+            rel = state["base_pos"][:, :2] - origins[:, :2]
+            state = on_terrain(state, grid, 12)
+            origins[:, :2] = state["base_pos"][:, :2] - rel
+    state, params, tau, imp = torch_inputs(state, params, tau, imp)
+    imp = imp if with_imp else None
+    kw = dict(terrain=grid, implicit_damp=imp, world_boxes=boxes,
+              env_origin=torch.tensor(origins))
+    ref = physics_step_soa(model, SimCfg(), state, tau, params, **kw)
+    out = CP.physics_step_host(host_lib, model, SimCfg(), state, tau, params,
+                               **kw)
+    assert ref.contact_report[..., :2].abs().max() > 0.1, "no wall is hit"
+    if kind == "ground":
+        assert_step_close(ref, out, kind)
+    else:
+        # strictly clear of the walls, in bulk in them (the rule and why:
+        # torch_port_helpers.assert_step_close_walls)
+        assert_step_close_walls(ref, out, wall_depth(model, boxes,
+                                                     ref.geom_pos, origins))
+
+
+def test_world_table_and_channels(models):
+    """The world block of the constant table (count, stiffness, c_n,
+    friction, velocity epsilon, then center and half extents per box) and
+    the 3 origin rows after the terrain rows: 238 input channels for Mini
+    Cheetah on terrain with the corridor."""
+    model = models["mc"]
+    sim = SimCfg()
+    boxes = default_corridor()
+    layout = CP.check_supported(model, sim, world_boxes=boxes)
+    t = CP.pack_constants(model, sim, layout, boxes, 0.8)
+    wo = (CP.HDR + CP.BASE_SIZE + layout.D * layout.K * CP.SLOT
+          + model.ng * CP.GEOM)
+    dt = sim.dt / sim.num_substeps
+    c_n = sim.contact_damping + sim.contact_stiffness * dt
+    np.testing.assert_array_equal(t[wo:wo + 5], np.float32(
+        [4, sim.contact_stiffness, c_n, 0.8, sim.friction_vel_eps]))
+    np.testing.assert_array_equal(
+        t[wo + CP.W_HDR:].reshape(4, 6),
+        torch.cat([boxes.centers, boxes.half_extents], -1).numpy())
+    assert t.size == wo + CP.W_HDR + 4 * CP.W_BOX
+    _, grid = step_grid()
+    state, params, tau, imp = torch_inputs(*physics_inputs(model, 5, 0,
+                                                           "ground"))
+    origin = torch.arange(15.0).reshape(5, 3)
+    gt = CP.geom_terrain_at(model, sim, layout, state, grid, None)
+    x = CP.pack_inputs(model, state, tau, params, imp, grid, gt, origin)
+    assert x.shape == (238, 5)
+    torch.testing.assert_close(x[235:], origin.T)
+
+
 def test_constant_table_layout_matches_header():
     """The offsets of ops/cuda_physics.py are the header's RL_* defines."""
     src = open(f"{CP.CSRC_DIR}/substep_chain.cuh").read()
@@ -99,6 +187,8 @@ def test_constant_table_layout_matches_header():
     assert int(define["RL_BASE_SIZE"]) == CP.BASE_SIZE
     assert int(define["RL_SLOT"]) == CP.SLOT
     assert int(define["RL_GEOM"]) == CP.GEOM
+    assert int(define["RL_W_HDR"]) == CP.W_HDR
+    assert int(define["RL_W_BOX"]) == CP.W_BOX
     assert int(define["RL_MAX_NG"]) == CP.MAX_NG
     assert int(define["RL_MAX_NR"]) == CP.MAX_NR
 
@@ -174,20 +264,26 @@ def test_cuda_wrapper_rejects_bad_inputs(models):
                          torch.device("cuda"))
 
 
-@pytest.mark.parametrize("robot,with_imp", [("hopper", True),
-                                            ("go1", False)])
-def test_cuda_launch_refuses_variants_not_built(models, robot, with_imp):
+@pytest.mark.parametrize("robot,with_imp,with_world", [
+    ("hopper", True, False), ("go1", False, False), ("go1", True, True)])
+def test_cuda_launch_refuses_variants_not_built(models, robot, with_imp,
+                                                with_world):
     """Only the quadruped layout with implicit damping is built for the
-    card; any other variant is refused before a build or a launch."""
+    card, and the world boxes only on terrain; any other variant (here:
+    the hopper's layout, no damping input, the walls on the plane) is
+    refused before a build or a launch."""
     model = models[robot]
     state, params, tau, imp = torch_inputs(*physics_inputs(model, 4, 0,
                                                            "ground"))
     imp = imp if with_imp else None
     layout = CP.check_supported(model, SimCfg())
-    x = CP.pack_inputs(model, state, tau, params, imp)
+    boxes = default_corridor() if with_world else None
+    origin = torch.zeros(4, 3) if with_world else None
+    x = CP.pack_inputs(model, state, tau, params, imp, env_origin=origin)
     y = torch.empty((CP.out_channels(model), 4))
-    cst = torch.from_numpy(CP.pack_constants(model, SimCfg(), layout))
-    before = CP.KERNEL.launches
+    cst = torch.from_numpy(CP.pack_constants(model, SimCfg(), layout, boxes))
+    before = (CP.KERNEL.launches, CP.KERNEL.world_launches)
     with pytest.raises(NotImplementedError):
-        CP.KERNEL.launch_packed(x, y, cst, layout, with_imp)
-    assert CP.KERNEL.launches == before
+        CP.KERNEL.launch_packed(x, y, cst, layout, with_imp,
+                                has_world=with_world)
+    assert (CP.KERNEL.launches, CP.KERNEL.world_launches) == before

@@ -108,3 +108,32 @@ def test_cpu_rollout_shapes_and_finite():
     # the trained policy keeps Go1 up for these steps
     assert not traj.dones.any()
     assert (state.sim.base_pos[:, 2] > 0.2).all()
+
+
+@pytest.mark.parametrize("act,use_latent", [("elu", True), ("tanh", False)])
+def test_fresh_init_matches_flax(act, use_latent):
+    """A fresh ActorCritic is initialised as Flax's (LeCun-normal kernels,
+    zero biases, std 1): the same tree, each kernel's standard deviation
+    within 10% of the Flax init's, no entry past two standard deviations
+    of the truncated normal, on the flagship's and the HLP's
+    architectures."""
+    dims = DIMS if use_latent else (14, 18, 16, 3)
+    jac = JN.ActorCritic(*dims, JN.ACArgs(activation=act,
+                                          use_latent=use_latent))
+    tree = jac.init(jax.random.PRNGKey(0),
+                    *(jnp.zeros((1, d)) for d in dims[:3]))
+    ref = params_from_flax(jax.tree.map(np.asarray, tree)["params"])
+    torch.manual_seed(0)
+    got = TN.ActorCritic(*dims, TN.ACArgs(activation=act,
+                                          use_latent=use_latent)
+                         ).state_dict()
+    assert set(got) == set(ref)
+    for k, v in got.items():
+        if k.endswith(".bias"):
+            assert torch.all(v == 0) and torch.all(ref[k] == 0), k
+        elif k == "std":
+            assert torch.equal(v, ref[k])
+        else:
+            fan_in = v.shape[1]
+            assert abs(v.std().item() / ref[k].std().item() - 1) < 0.1, k
+            assert v.abs().max().item() <= 2.0 / np.sqrt(fan_in) / .8796, k
