@@ -8,9 +8,11 @@ phase prints one flushed line with the seconds elapsed; a failed phase
 raises and the script exits non-zero.
 
 1. device:   a CUDA card, its name and power limit (nvidia-smi).
-2. build:    nvcc builds the physics kernel (the three variants the port
-             runs: the plane, terrain, and terrain with world boxes) from
-             csrc/; ptxas's register, spill and stack lines.
+2. build:    nvcc builds the physics kernel (the five variants the port
+             runs: the plane, terrain, terrain with world boxes, terrain
+             with the legacy contact model, and terrain with the legacy
+             contact model and a fixed base) from csrc/; ptxas's register,
+             spill and stack lines.
 3. kernel:   the plane variant against its plain PyTorch version on Go1 at
              4096 envs, on states made from a numpy seed: torque-free
              flight at rtol/atol 2e-5 on state and 1e-5 on geom positions;
@@ -30,20 +32,36 @@ raises and the script exits non-zero.
              the walls change at 2e-4/2e-3; grounded states in bulk. Its
              numbers go into the kernels line. Then the same checks and
              times at 4000 envs (the flagship's width), for comparison.
-6. rollout:  the Go1 env (config_go1, 4096 envs, plane) with the
+6. legacy:   the legacy-contact variant (SimCfg.contact_model "legacy")
+             held and timed the same way as the terrain variant at 4000
+             Mini Cheetah envs over the same mix; then config_mini_cheetah
+             with that contact model under the runs/r5_flagship policy for
+             one 24-step horizon: all 96 physics calls through the variant,
+             the state finite.
+7. fixed-base: the same for the fixed base (AssetCfg.fix_base_link) with
+             the legacy contact model (the port refuses a fixed base with
+             the apparent model, which gives NaN in the JAX package's SoA
+             step); the kernel returns each input base pose unchanged
+             and zero base velocities, and over the horizon every base
+             stays where its last reset put it.
+8. rollout:  the Go1 env (config_go1, 4096 envs, plane) with the
              runs/r4_go1 policy weights; one PPO horizon (24 steps) of
              teacher-policy rollout; outputs finite; the plane variant
              launched exactly 24 x decimation times; env-steps/s and peak
              memory.
-7. flagship: config_mini_cheetah (4000 envs, trimesh) with the
-             runs/r5_flagship weights: 2 training iterations (24-step
-             rollout, GAE, 5 x 4 minibatches of PPO with the adaptive-KL
-             LR and the adaptation-module step); 96 terrain-variant
-             launches per iteration and no other; finite losses, KL, LR and
-             params, LR in [1e-5, max_lr], mean base z in (0.15, 0.5) m,
-             done rate under 5%; the rollout/update split, env-steps/s of
-             the iteration and peak memory.
-8. hlp:      scripts/high_level_play_cuda.py's main path: the frozen
+9. train:    scripts/train_cuda.py's main on the flagship
+             (config_mini_cheetah, 4000 envs, trimesh), resumed from
+             runs/r5_flagship's full train state (params, both Adam states,
+             LR, env state with its command curriculum), 2 Runner
+             iterations (24-step rollout, GAE, 5 x 4 minibatches of PPO
+             with the adaptive-KL LR and the adaptation-module step) into a
+             scratch logdir; 96 terrain-variant launches per iteration and
+             no other; finite losses and params; KL in [0.003, 0.1] and LR
+             in [1e-5, 1e-2], off its 1e-5 floor; mean base z in
+             (0.15, 0.5) m, done rate under 5%; r5_flagship's metric keys;
+             the checkpoint read back equal; the rollout/update split,
+             env-steps/s of the iteration and peak memory.
+10. hlp:     scripts/high_level_play_cuda.py's main path: the frozen
              runs/r4_flagship_4000 student under the goal-navigation env at
              1024 envs (trimesh), r5_hlp7's recipe, resumed from its train
              state, 2 Runner iterations of 200 steps (800 terrain-variant
@@ -51,13 +69,13 @@ raises and the script exits non-zero.
              [1e-5, 1e-3], r5_hlp7's metric keys, the checkpoint read back
              equal, at least one goal reached; the rollout/update split,
              env-steps/s and peak memory.
-9. hlp-world: the same entry with the corridor on, from a fresh state: one
+11. hlp-world: the same entry with the corridor on, from a fresh state: one
              iteration, all 800 physics calls through the terrain + world
              variant, finite results, some env against a wall; then the
              kernel against its plain version on the low-level state at
              the iteration's end (in bulk, and the report entries that the
              walls change).
-10. result:  the kernels line, the card line, and the contract line.
+12. result:  the kernels line, the card line, and the contract line.
 """
 
 from __future__ import annotations
@@ -78,6 +96,8 @@ SEED = 0
 WEIGHTS = os.path.join("runs", "r4_go1", "checkpoints", "ac_weights_last.pkl")
 MC_WEIGHTS = os.path.join("runs", "r5_flagship", "checkpoints",
                           "ac_weights_last.pkl")
+MC_STATE = os.path.join("runs", "r5_flagship", "checkpoints",
+                        "train_state_last.pkl")
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_FP32_OPS_PER_S = 67e12     # fp32 outside the tensor cores
 
@@ -167,12 +187,14 @@ def random_inputs(model, n, seed, airborne, dev):
     return state, tau, params, imp
 
 
-def count_ops_per_env(model, sim_cfg, n=8, terrain=False, world=False):
+def count_ops_per_env(model, sim_cfg, n=8, terrain=False, world=False,
+                      fixed_base=False):
     """Arithmetic operations per env of one physics call, counted from the
     plain version's substep chain on the CPU (the kernel's work; with
     ``terrain`` the per-geom heights and normals are inputs, as in the
     kernel; with ``world`` the default corridor's 4 walls act in every
-    substep, whatever the spheres' distance to them, as in the kernel):
+    substep, whatever the spheres' distance to them, as in the kernel;
+    ``sim_cfg.contact_model`` and ``fixed_base`` pick the branches):
     every elementwise aten op adds its output's element count (sin, sqrt,
     a comparison or a clamp count as one)."""
     import torch
@@ -218,7 +240,8 @@ def count_ops_per_env(model, sim_cfg, n=8, terrain=False, world=False):
         comps["origin"] = _v3(state.base_pos * 0.5)
     layout = check_supported(model, sim_cfg)
     with Count():
-        substep_chain(model, sim_cfg, layout, comps, boxes)
+        substep_chain(model, sim_cfg, layout, comps, boxes,
+                      fixed_base=fixed_base)
     return Count.ops / n
 
 
@@ -253,8 +276,19 @@ def mostly_close(phase, name, a, b, atol, where=None, label="grounded"):
         raise AssertionError(f"{label} {name}: only {ok:.4f} < 0.99 agree")
 
 
+def check_pinned(phase, state, out):
+    """A fixed-base call returns the base pose it was given and zero base
+    velocities, exactly."""
+    import torch
+    if not (torch.equal(out.state.base_pos, state.base_pos)
+            and torch.equal(out.state.base_quat, state.base_quat)
+            and bool((out.state.base_lin_vel == 0).all())
+            and bool((out.state.base_ang_vel == 0).all())):
+        raise AssertionError(f"{phase}: the fixed base moved")
+
+
 def hold_kernel(phase, model, sim, make_inputs, n, terrain=None,
-                window=None, boxes=None, origins=None):
+                window=None, boxes=None, origins=None, fixed_base=False):
     """The kernel against its plain version: torque-free flight strictly,
     grounded states with random torques in bulk; then its time per launch,
     the plain version's time per call, and the bound, at these shapes.
@@ -262,7 +296,9 @@ def hold_kernel(phase, model, sim, make_inputs, n, terrain=None,
     ``window(state)`` the terrain window of the env's step. With world
     ``boxes`` at ``origins`` [N, 3], the flight state flies over the walls
     (the world branch runs and adds nothing), and the grounded state's
-    report entries that the walls change are counted and held in bulk."""
+    report entries that the walls change are counted and held in bulk.
+    ``sim.contact_model`` and ``fixed_base`` pick the variant; with a fixed
+    base the kernel's base pose and velocities are checked exactly."""
     import torch
     from rapid_locomotion_rl_tpu_torch.ops import cuda_physics as CP
     from rapid_locomotion_rl_tpu_torch.ops.soa_physics import physics_step_soa
@@ -271,11 +307,14 @@ def hold_kernel(phase, model, sim, make_inputs, n, terrain=None,
     def both(state, tau, params, imp):
         kw = dict(terrain=terrain, implicit_damp=imp,
                   terrain_window=None if window is None else window(state),
-                  world_boxes=boxes, env_origin=origins)
+                  world_boxes=boxes, env_origin=origins,
+                  fixed_base=fixed_base)
         out_k = CP.physics_step_cuda(model, sim, state, tau, params, **kw)
         torch.cuda.synchronize()
         out_p = physics_step_soa(model, sim, state, tau, params, **kw)
         torch.cuda.synchronize()
+        if fixed_base:
+            check_pinned(phase, state, out_k)
         return out_k, out_p
 
     # torque-free flight: no contact, no limit hits -> tight agreement
@@ -314,7 +353,7 @@ def hold_kernel(phase, model, sim, make_inputs, n, terrain=None,
         free = physics_step_soa(
             model, sim, state, tau, params, terrain=terrain,
             implicit_damp=imp, terrain_window=None if window is None
-            else window(state))
+            else window(state), fixed_base=fixed_base)
         walled = out_p.contact_report != free.contact_report
         say(phase, f"grounded: {int(walled.sum())} report entries changed "
             f"by the walls")
@@ -344,15 +383,18 @@ def hold_kernel(phase, model, sim, make_inputs, n, terrain=None,
     x = CP.pack_inputs(model, state, tau, params, imp, terrain, gt, origins)
     y = torch.empty((CP.out_channels(model), n), device=state.q.device)
     has_t, has_w = terrain is not None, boxes is not None
+    legacy = CP.legacy_contact(sim)
     result["ms"] = time_ms(
         lambda: CP.KERNEL.launch_packed(x, y, cst, layout, True, has_t,
-                                        has_w), 50)
+                                        has_w, legacy, fixed_base), 50)
     result["plain_ms"] = time_ms(
         lambda: physics_step_soa(model, sim, state, tau, params,
                                  terrain=terrain, implicit_damp=imp,
                                  terrain_window=win, world_boxes=boxes,
-                                 env_origin=origins), 2)
-    ops = count_ops_per_env(model, sim, terrain=has_t, world=has_w)
+                                 env_origin=origins, fixed_base=fixed_base),
+        2)
+    ops = count_ops_per_env(model, sim, terrain=has_t, world=has_w,
+                            fixed_base=fixed_base)
     nbytes = (x.numel() + y.numel() + cst.numel()) * 4
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = ops * n / H100_FP32_OPS_PER_S * 1e3
@@ -396,16 +438,22 @@ def mix_grid(phase, dev):
     return tc, grid
 
 
-def phase_terrain(dev):
+def phase_terrain(dev, tc, grid, phase="terrain", legacy=False,
+                  fixed_base=False):
     """The terrain variant on Mini Cheetah at 4000 envs over the default
-    TerrainCfg mix, looked up through the env's column-block window."""
+    TerrainCfg mix, looked up through the env's column-block window; with
+    ``legacy`` the legacy-contact variant, with ``fixed_base`` also the
+    fixed base, held and timed on the same states."""
+    import copy
     import numpy as np
     import torch
     from rapid_locomotion_rl_tpu_torch.config import config_mini_cheetah
     from rapid_locomotion_rl_tpu_torch.ops.contact import (
         blocked_window, terrain_height_bilinear)
     cfg, model = robot(config_mini_cheetah)
-    tc, grid = mix_grid("terrain", dev)
+    sim = copy.deepcopy(cfg.sim)
+    if legacy:
+        sim.contact_model = "legacy"
     rng = np.random.default_rng(SEED)
     xy = torch.tensor(np.stack([
         rng.uniform(0.5, tc.num_rows * tc.terrain_length - 0.5, N_MC),
@@ -420,9 +468,10 @@ def phase_terrain(dev):
         return state._replace(base_pos=pos), tau, params, imp
 
     return hold_kernel(
-        "terrain", model, cfg.sim, make_inputs, N_MC, terrain=grid,
+        phase, model, sim, make_inputs, N_MC, terrain=grid,
         window=lambda s: blocked_window(grid, s.base_pos[:, 0],
-                                        s.base_pos[:, 1]))
+                                        s.base_pos[:, 1]),
+        fixed_base=fixed_base)
 
 
 def phase_world(dev, tc, grid, n, phase):
@@ -553,19 +602,36 @@ def load_run(env, weights, dev):
     return ac, PPOArgs(**run.get("PPO_Args", {}))
 
 
+VARIANTS = ("plane", "terrain", "world", "legacy", "fixed_base")
+
+
 def zero_counts():
     from rapid_locomotion_rl_tpu_torch.ops import cuda_physics as CP
-    CP.KERNEL.launches = CP.KERNEL.terrain_launches = 0
-    CP.KERNEL.world_launches = 0
+    k = CP.KERNEL
+    k.launches = k.terrain_launches = k.world_launches = 0
+    k.legacy_launches = k.fixed_base_launches = 0
 
 
 def read_counts():
-    """(plane-variant, terrain-variant, terrain + world-variant launches)
-    since zero_counts."""
+    """Launches per variant since zero_counts, in the order of VARIANTS:
+    plane, terrain, terrain + world, terrain + legacy contact, terrain +
+    legacy contact + fixed base."""
     from rapid_locomotion_rl_tpu_torch.ops import cuda_physics as CP
     k = CP.KERNEL
     return (k.launches - k.terrain_launches,
-            k.terrain_launches - k.world_launches, k.world_launches)
+            k.terrain_launches - k.world_launches - k.legacy_launches,
+            k.world_launches, k.legacy_launches - k.fixed_base_launches,
+            k.fixed_base_launches)
+
+
+def check_counts(phase, got, **want):
+    """``got`` (read_counts or a difference of two) has ``want`` launches
+    of the named variants and none of the others."""
+    exp = tuple(want.get(v, 0) for v in VARIANTS)
+    if tuple(got) != exp:
+        raise AssertionError(f"{phase}: launches per variant "
+                             f"{dict(zip(VARIANTS, got))}, want "
+                             f"{dict(zip(VARIANTS, exp))}")
 
 
 def phase_rollout(dev):
@@ -595,12 +661,9 @@ def phase_rollout(dev):
     state, traj, info = rollout(env, ac, PPOArgs(), state, sampler, HORIZON)
     torch.cuda.synchronize()
     wall = time.time() - t
-    launches, t_launches, w_launches = read_counts()
-    want = HORIZON * cfg.control.decimation
-    if launches != want or t_launches != 0 or w_launches != 0:
-        raise AssertionError(f"plane variant launched {launches} times, "
-                             f"terrain variant {t_launches}, world variant "
-                             f"{w_launches}; want {want}, 0, 0")
+    launches = read_counts()[0]
+    check_counts("rollout", read_counts(),
+                 plane=HORIZON * cfg.control.decimation)
     for name, v in list(traj._asdict().items()) + list(info.items()) + \
             list(state.sim._asdict().items()):
         if v.is_floating_point() and not torch.isfinite(v).all():
@@ -643,84 +706,191 @@ def phase_rollout(dev):
                 kernel_ms_rollout=k_ms, peak_bytes=peak)
 
 
-def phase_flagship(dev):
-    """The flagship training iteration: config_mini_cheetah at 4000 envs on
-    its trimesh terrain, from the runs/r5_flagship policy (fresh Adam
-    states), ITERATIONS iterations."""
-    import numpy as np
+def phase_horizon(dev, phase, fixed_base):
+    """config_mini_cheetah (4000 envs, trimesh) with the legacy contact
+    model, and with ``fixed_base`` a fixed base, under the runs/r5_flagship
+    policy for one 24-step horizon: every physics call through that
+    variant, the state finite. With the fixed base the kernel returns each
+    input base pose unchanged and zero base velocities, and a base moves
+    only when its env resets. Returns the variant's launches."""
     import torch
     from rapid_locomotion_rl_tpu_torch.config import config_mini_cheetah
     from rapid_locomotion_rl_tpu_torch.envs.legged_robot import LeggedRobotEnv
-    from rapid_locomotion_rl_tpu_torch.learn.ppo import (init_ppo_state,
-                                                         train_iteration)
-    from rapid_locomotion_rl_tpu_torch.ops import cuda_physics as CP
-    from rapid_locomotion_rl_tpu_torch.ops.dynamics import PhysParams
+    from rapid_locomotion_rl_tpu_torch.learn.ppo import PPOArgs, rollout
     from rapid_locomotion_rl_tpu_torch.sampler import Sampler
     cfg = config_mini_cheetah()
-    if cfg.env.num_envs != N_MC or cfg.terrain.mesh_type != "trimesh":
-        raise AssertionError("config_mini_cheetah is not the flagship")
+    cfg.sim.contact_model = "legacy"
+    cfg.asset.fix_base_link = fixed_base
     t = time.time()
     env = LeggedRobotEnv(cfg, device=dev)
-    ac, ppo_args = load_run(env, MC_WEIGHTS, dev)
+    ac, _ = load_run(env, MC_WEIGHTS, dev)
     sampler = Sampler(SEED, dev)
     state = env.initial_state(sampler)
-    ppo_state = init_ppo_state(ac, ppo_args)
     torch.cuda.synchronize()
-    grid = env.collision_grid
-    say("flagship", f"Mini Cheetah env ({env.num_envs} envs, nv="
-        f"{env.model.nv}, ng={env.model.ng}, nr={env.model.nr}), collision "
-        f"grid {tuple(grid.height.shape)} "
-        f"({grid.height.numel() * 4 / 2**20:.1f} MiB), and {MC_WEIGHTS} "
-        f"loaded in {time.time() - t:.2f}s")
+    say(phase, f"flagship env (legacy contact, fix_base_link={fixed_base}, "
+        f"{env.num_envs} envs) and {MC_WEIGHTS} loaded in "
+        f"{time.time() - t:.2f}s")
+    moved = [0]
+    if fixed_base:
+        phys, step = env._phys, env.step
 
-    per_iter = HORIZON * cfg.control.decimation
-    torch.cuda.reset_peak_memory_stats()
+        def pinned(sim, *args):
+            out = phys(sim, *args)
+            check_pinned(phase, sim, out)
+            return out
+
+        def stepped(st, actions, smp):
+            new, res = step(st, actions, smp)
+            same = ((new.sim.base_pos == st.sim.base_pos).all(-1)
+                    & (new.sim.base_quat == st.sim.base_quat).all(-1))
+            moved[0] += int((~res.done & ~same).sum())
+            return new, res
+        env._phys, env.step = pinned, stepped
+
     zero_counts()
+    t = time.time()
+    state, traj, info = rollout(env, ac, PPOArgs(), state, sampler, HORIZON)
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    counts = read_counts()
+    name = "fixed_base" if fixed_base else "legacy"
+    check_counts(phase, counts,
+                 **{name: HORIZON * cfg.control.decimation})
+    for k, v in list(traj._asdict().items()) + list(info.items()) + \
+            list(state.sim._asdict().items()):
+        if v.is_floating_point() and not torch.isfinite(v).all():
+            raise AssertionError(f"{phase}: {k} is not finite")
+    if moved[0]:
+        raise AssertionError(f"{phase}: {moved[0]} bases moved without a "
+                             f"reset")
+    say(phase, f"{HORIZON} steps x {env.num_envs} envs: "
+        f"{counts[VARIANTS.index(name)]} {name}-variant launches, state "
+        f"finite; mean base z {state.sim.base_pos[:, 2].mean().item():.3f} "
+        f"m, done rate {traj.dones.float().mean().item():.4f}, mean reward "
+        f"{traj.rewards.mean().item():.5f}; {wall:.3f}s "
+        f"({HORIZON * env.num_envs / wall:.0f} env-steps/s)"
+        + ("; every base where its last reset put it" if fixed_base
+           else "") + f" | {card_line()}")
+    return counts[VARIANTS.index(name)]
+
+
+def phase_variant(dev, tc, grid, phase, fixed_base):
+    """K1's legacy-contact variant (with ``fixed_base`` the fixed-base one)
+    held and timed at 4000 envs over the mix, then driven through the
+    flagship env for a horizon."""
+    k = phase_terrain(dev, tc, grid, phase, legacy=True,
+                      fixed_base=fixed_base)
+    k["launches"] = phase_horizon(dev, phase, fixed_base)
+    return k
+
+
+def phase_train(dev):
+    """scripts/train_cuda.py's main on the flagship (config_mini_cheetah,
+    4000 envs, trimesh), resumed from runs/r5_flagship's full train state
+    (params, both Adam states, LR, env state), ITERATIONS iterations into
+    a scratch logdir."""
+    import numpy as np
+    import torch
+    from rapid_locomotion_rl_tpu_torch.ops import cuda_physics as CP
+    from rapid_locomotion_rl_tpu_torch.ops.dynamics import PhysParams
+    mod = script("train_cuda.py")
+    logdir = run_dir("train")
+    argv = ["--resume", MC_STATE, "--iterations", str(ITERATIONS),
+            "--logdir", logdir, "--device", str(dev)]
+    say("train", "train_cuda.py " + " ".join(argv))
+    seen = []
+    build = mod.build_runner
+
+    def build_and_watch(args):
+        t = time.time()
+        runner = build(args)
+        torch.cuda.synchronize()
+        grid = runner.env.collision_grid
+        say("train", f"Mini Cheetah env ({runner.env.num_envs} envs, nv="
+            f"{runner.env.model.nv}, ng={runner.env.model.ng}, nr="
+            f"{runner.env.model.nr}), collision grid "
+            f"{tuple(grid.height.shape)} "
+            f"({grid.height.numel() * 4 / 2**20:.1f} MiB), and the resumed "
+            f"state (iteration {runner.current_learning_iteration}, lr "
+            f"{runner.ppo_state.lr:.6g}) loaded in {time.time() - t:.2f}s")
+        if runner.current_learning_iteration != 4000:
+            raise AssertionError(f"resumed at iteration "
+                                 f"{runner.current_learning_iteration}")
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        log_iteration = runner._log_iteration
+
+        def logged(it, metrics):
+            log_iteration(it, metrics)
+            seen.append((it, read_counts(), dict(runner.last_metrics),
+                         runner.env_state.sim.base_pos[:, 2].mean().item()))
+        runner._log_iteration = logged
+        return runner
+
+    mod.build_runner = build_and_watch
+    try:
+        runner = mod.main(argv)
+    finally:
+        mod.build_runner = build
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    env = runner.env
+    cfg = env.cfg
+    per_iter = runner.args.num_steps_per_env * cfg.control.decimation
+    if len(seen) != ITERATIONS:
+        raise AssertionError(f"{len(seen)} iterations logged")
+    before = (0,) * len(VARIANTS)
     runs = []
-    for it in range(ITERATIONS):
-        timings = {}
-        before = read_counts()
-        state, ppo_state, m = train_iteration(
-            env, ac, ppo_args, state, ppo_state, sampler,
-            entropy_coef=ppo_args.entropy_coef, num_steps=HORIZON,
-            timings=timings)
-        after = read_counts()
-        plane, terr, wld = (a - b for a, b in zip(after, before))
-        if plane != 0 or terr != per_iter or wld != 0:
-            raise AssertionError(f"iteration {it}: terrain variant launched "
-                                 f"{terr} times, plane variant {plane}, "
-                                 f"world variant {wld}; want {per_iter}, 0, "
-                                 f"0")
+    for (it, counts, m, z), tm in zip(seen, runner.timings):
+        check_counts(f"train iteration {it}",
+                     [a - b for a, b in zip(counts, before)],
+                     terrain=per_iter)
+        before = counts
         for k in ("mean_value_loss", "mean_surrogate_loss",
                   "mean_adaptation_loss", "kl", "lr", "mean_reward"):
-            if not torch.isfinite(m[k]).all():
-                raise AssertionError(f"iteration {it}: {k} is not finite")
-        if not all(torch.isfinite(p).all() for p in ac.parameters()):
-            raise AssertionError(f"iteration {it}: non-finite parameters")
-        if not float(np.float32(1e-5)) <= ppo_state.lr <= ppo_args.max_lr:
-            raise AssertionError(f"iteration {it}: lr {ppo_state.lr}")
-        z = state.sim.base_pos[:, 2].mean().item()
-        done = m["mean_episode_dones"].item()
+            if not np.isfinite(m[k]):
+                raise AssertionError(f"iteration {it}: {k} = {m[k]}")
+        if not 0.003 <= m["kl"] <= 0.1:
+            raise AssertionError(f"iteration {it}: kl {m['kl']} out of "
+                                 f"[0.003, 0.1]")
+        if not float(np.float32(1e-5)) < m["lr"] <= 1e-2:
+            raise AssertionError(f"iteration {it}: lr {m['lr']} out of "
+                                 f"(1e-5, 1e-2]")
+        done = m["mean_episode_dones"]
         if not (0.15 < z < 0.5 and done < 0.05):
             raise AssertionError(f"robots fell: mean base z {z:.3f}, "
                                  f"done rate {done:.4f}")
-        total = timings["rollout_s"] + timings["update_s"]
-        runs.append(dict(timings, total_s=total,
-                         env_steps_per_s=HORIZON * N_MC / total))
-        say("flagship", f"iteration {it}: {terr} terrain-variant launches; "
-            f"rollout {timings['rollout_s']:.3f}s, update "
-            f"{timings['update_s']:.3f}s ({timings['update_s'] / total:.1%}"
-            f" of {total:.3f}s), {HORIZON * N_MC / total:.0f} env-steps/s; "
-            f"value loss {m['mean_value_loss'].item():.4g}, surrogate "
-            f"{m['mean_surrogate_loss'].item():.4g}, adaptation "
-            f"{m['mean_adaptation_loss'].item():.4g}, kl "
-            f"{m['kl'].item():.4g}, lr {ppo_state.lr:.3g}, mean reward "
-            f"{m['mean_reward'].item():.5f}, base z {z:.3f} m, done rate "
-            f"{done:.4f}")
-    launches = read_counts()[1]
-    peak = torch.cuda.max_memory_allocated()
+        total = tm["rollout_s"] + tm["update_s"]
+        steps = runner.args.num_steps_per_env * env.num_envs
+        runs.append(dict(tm, total_s=total, env_steps_per_s=steps / total,
+                         kl=m["kl"], lr=m["lr"]))
+        say("train", f"iteration {it}: {per_iter} terrain-variant launches; "
+            f"rollout {tm['rollout_s']:.3f}s, update {tm['update_s']:.3f}s "
+            f"({tm['update_s'] / total:.1%} of {total:.3f}s), "
+            f"{steps / total:.0f} env-steps/s; value loss "
+            f"{m['mean_value_loss']:.4g}, surrogate "
+            f"{m['mean_surrogate_loss']:.4g}, adaptation "
+            f"{m['mean_adaptation_loss']:.4g}, kl {m['kl']:.4g}, lr "
+            f"{m['lr']:.4g}, mean reward {m['mean_reward']:.5f}, base z "
+            f"{z:.3f} m, done rate {done:.4f}")
+    if not all(torch.isfinite(p).all() for p in runner.ac.parameters()):
+        raise AssertionError("train: non-finite parameters")
+    for name, v in runner.env_state.sim._asdict().items():
+        if not torch.isfinite(v).all():
+            raise AssertionError(f"train: sim state {name} is not finite")
+    got = metric_keys(os.path.join(logdir, "metrics.jsonl"))
+    ref = metric_keys(os.path.join("runs", "r5_flagship", "metrics.jsonl"))
+    if got != ref:
+        raise AssertionError(f"metric keys differ from r5_flagship's: extra "
+                             f"{sorted(got - ref)}, missing "
+                             f"{sorted(ref - got)}")
+    say("train", f"metrics.jsonl has r5_flagship's {len(ref)} keys")
+    check_round_trip("train", runner, os.path.join(
+        logdir, "checkpoints", "train_state_last.pkl"))
 
     # the terrain variant alone on the flagship's own state and window
+    grid = env.collision_grid
+    state = runner.env_state
     layout = CP.check_supported(env.model, cfg.sim, terrain=grid)
     dr = state.dr
     imp = (env.d_gains * dr.Kd_factors + env._dt_sub * env.p_gains
@@ -730,20 +900,21 @@ def phase_flagship(dev):
     x = CP.pack_inputs(env.model, state.sim, state.torques, PhysParams(
         dr.friction, dr.restitution, dr.payloads, dr.com_displacements), imp,
         grid, gt)
-    y = torch.empty((CP.out_channels(env.model), N_MC), device=dev)
+    y = torch.empty((CP.out_channels(env.model), env.num_envs), device=dev)
     cst = CP.KERNEL.table(env.model, cfg.sim, layout, dev)
     k_ms = time_ms(
         lambda: CP.KERNEL.launch_packed(x, y, cst, layout, True, True), 50)
     last = runs[-1]
-    step_ms = last["rollout_s"] / HORIZON * 1e3
-    say("flagship", f"steady iteration: {last['env_steps_per_s']:.0f} "
+    step_ms = last["rollout_s"] / runner.args.num_steps_per_env * 1e3
+    say("train", f"steady iteration: {last['env_steps_per_s']:.0f} "
         f"env-steps/s, rollout {last['rollout_s']:.3f}s "
         f"({step_ms:.1f} ms/env step), update {last['update_s']:.3f}s; "
         f"kernel {k_ms:.4f} ms/launch on the flagship state "
         f"({k_ms * cfg.control.decimation / step_ms * 100:.1f}% of an env "
         f"step); peak memory {peak / 2**20:.1f} MiB | {card_line()}")
-    return dict(launches=launches, kernel_ms_flagship=k_ms, peak_bytes=peak,
-                iterations=runs)
+    # the terrain launches counted over the run, before the timing launches
+    return dict(launches=seen[-1][1][VARIANTS.index("terrain")],
+                kernel_ms_flagship=k_ms, peak_bytes=peak, iterations=runs)
 
 
 HLP_RECIPE = ["--ll-run", os.path.join("runs", "r4_flagship_4000"),
@@ -754,16 +925,21 @@ HLP_RESUME = os.path.join("runs", "r5_hlp7", "checkpoints",
                           "train_state_last.pkl")
 
 
-def hlp_script():
-    """scripts/high_level_play_cuda.py as a module."""
+def script(name):
+    """scripts/<name> as a module."""
     import importlib.util
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        "scripts", "high_level_play_cuda.py")
-    spec = importlib.util.spec_from_file_location("high_level_play_cuda",
-                                                  path)
+                        "scripts", name)
+    spec = importlib.util.spec_from_file_location(name[:-3], path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def metric_keys(path):
+    """The metric keys of a metrics.jsonl."""
+    with open(path) as f:
+        return set().union(*(json.loads(x) for x in f)) - {"_timestamp"}
 
 
 def run_dir(name):
@@ -807,11 +983,18 @@ def check_round_trip(phase, runner, path):
                                     runner.ppo_args)
     pairs = [(k, v, ac.state_dict()[k])
              for k, v in runner.ac.state_dict().items()]
+    names = {id(p): k for k, p in runner.ac.named_parameters()}
     theirs = dict(ac.named_parameters())
-    for k, p in runner.ac.named_parameters():
-        mine, back = runner.ppo_state.opt.state[p], ps.opt.state[theirs[k]]
-        pairs += [(f"{k} {f}", mine[f], back[f])
-                  for f in ("step", "exp_avg", "exp_avg_sq")]
+    # the policy's Adam and, with the latent branch, the adaptation module's
+    for opt, opt_back in ((runner.ppo_state.opt, ps.opt),
+                          (runner.ppo_state.adapt_opt, ps.adapt_opt)):
+        if (opt is None) != (opt_back is None):
+            raise AssertionError(f"{phase}: an optimizer is missing")
+        for p in [] if opt is None else opt.param_groups[0]["params"]:
+            k = names[id(p)]
+            mine, back = opt.state[p], opt_back.state[theirs[k]]
+            pairs += [(f"{k} {f}", mine[f], back[f])
+                      for f in ("step", "exp_avg", "exp_avg_sq")]
     env2 = convert.state_from_jax(payload["env_state"], runner.device)
 
     def leaves(prefix, x):
@@ -843,7 +1026,7 @@ def phase_hlp(dev):
     import json
     import numpy as np
     import torch
-    mod = hlp_script()
+    mod = script("high_level_play_cuda.py")
     logdir = run_dir("hlp")
     argv = HLP_RECIPE + ["--resume", HLP_RESUME, "--iterations",
                          str(ITERATIONS), "--logdir", logdir,
@@ -871,13 +1054,11 @@ def phase_hlp(dev):
     runner._log_iteration = logged
     runner.learn(ITERATIONS, eval_freq=200)
     torch.cuda.synchronize()
-    plane, terr, wld = read_counts()
+    terr = read_counts()[1]
     peak = torch.cuda.max_memory_allocated()
     steps = runner.args.num_steps_per_env
-    want = ITERATIONS * steps * runner.env.ll_env.cfg.control.decimation
-    if plane != 0 or terr != want or wld != 0:
-        raise AssertionError(f"terrain variant launched {terr} times, plane "
-                             f"{plane}, world {wld}; want {want}, 0, 0")
+    check_counts("hlp", read_counts(), terrain=ITERATIONS * steps
+                 * runner.env.ll_env.cfg.control.decimation)
     check_finite("hlp", runner)
     if not float(np.float32(1e-5)) <= runner.ppo_state.lr <= 1e-3:
         raise AssertionError(f"lr {runner.ppo_state.lr} out of [1e-5, 1e-3]")
@@ -898,11 +1079,8 @@ def phase_hlp(dev):
     if sum(goals) < 1:
         raise AssertionError(f"no goal reached in {ITERATIONS} iterations")
 
-    def keys(path):
-        with open(path) as f:
-            return set().union(*(json.loads(x) for x in f)) - {"_timestamp"}
-    got = keys(os.path.join(logdir, "metrics.jsonl"))
-    ref = keys(os.path.join("runs", "r5_hlp7", "metrics.jsonl"))
+    got = metric_keys(os.path.join(logdir, "metrics.jsonl"))
+    ref = metric_keys(os.path.join("runs", "r5_hlp7", "metrics.jsonl"))
     if got != ref:
         raise AssertionError(f"metric keys differ from r5_hlp7's: extra "
                              f"{sorted(got - ref)}, missing "
@@ -927,7 +1105,7 @@ def phase_hlp_world(dev):
     from rapid_locomotion_rl_tpu_torch.ops import cuda_physics as CP
     from rapid_locomotion_rl_tpu_torch.ops.dynamics import PhysParams
     from rapid_locomotion_rl_tpu_torch.ops.soa_physics import physics_step_soa
-    mod = hlp_script()
+    mod = script("high_level_play_cuda.py")
     argv = HLP_RECIPE + ["--world", "--iterations", "1", "--logdir",
                          run_dir("hlp_world"), "--device", str(dev)]
     say("hlp-world", "high_level_play_cuda.py " + " ".join(argv))
@@ -936,12 +1114,10 @@ def phase_hlp_world(dev):
     zero_counts()
     runner.learn(1, eval_freq=200)
     torch.cuda.synchronize()
-    plane, terr, wld = read_counts()
+    wld = read_counts()[2]
     ll_env = runner.env.ll_env
-    want = runner.args.num_steps_per_env * ll_env.cfg.control.decimation
-    if plane != 0 or terr != 0 or wld != want:
-        raise AssertionError(f"world variant launched {wld} times, terrain "
-                             f"{terr}, plane {plane}; want {want}, 0, 0")
+    check_counts("hlp-world", read_counts(), world=runner.args
+                 .num_steps_per_env * ll_env.cfg.control.decimation)
     check_finite("hlp-world", runner)
     tm = runner.timings[0]
     total = tm["rollout_s"] + tm["update_s"]
@@ -999,12 +1175,15 @@ def main() -> int:
     dev = phase_device()
     phase_build()
     k1 = phase_kernel(dev)
-    kt = phase_terrain(dev)
-    tc, grid = mix_grid("world", dev)
+    tc, grid = mix_grid("terrain", dev)
+    kt = phase_terrain(dev, tc, grid)
     kw = phase_world(dev, tc, grid, N_HLP, "world")
     phase_world(dev, tc, grid, N_MC, "world-4000")
+    kl = phase_variant(dev, tc, grid, "legacy", fixed_base=False)
+    kf = phase_variant(dev, tc, grid, "fixed-base", fixed_base=True)
+    del grid
     ro = phase_rollout(dev)
-    fl = phase_flagship(dev)
+    tr = phase_train(dev)
     hl = phase_hlp(dev)
     hw = phase_hlp_world(dev)
     say("result", "all phases passed")
@@ -1022,8 +1201,10 @@ def main() -> int:
         "library_ms": None,
     } for name, k, launches in (
         ("physics_step", k1, ro["launches"]),
-        ("physics_step_terrain", kt, fl["launches"] + hl["launches"]),
-        ("physics_step_terrain_world", kw, hw["launches"]))]
+        ("physics_step_terrain", kt, tr["launches"] + hl["launches"]),
+        ("physics_step_terrain_world", kw, hw["launches"]),
+        ("physics_step_terrain_legacy", kl, kl["launches"]),
+        ("physics_step_terrain_legacy_fixed_base", kf, kf["launches"]))]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     import torch

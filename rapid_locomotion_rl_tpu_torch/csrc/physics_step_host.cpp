@@ -1,40 +1,72 @@
 // CPU build of the physics step's per-env body (csrc/substep_chain.cuh): a
-// loop over envs. It lets the kernel's arithmetic be tested on a machine
-// without a GPU (g++ -O2 -shared -fPIC -ffp-contract=off).
+// loop over envs, in every variant of the compile-time switches (a fixed
+// base with the legacy contact model only, as the chain takes it). It lets the
+// kernel's arithmetic be tested on a machine without a GPU (g++ -O2 -shared
+// -fPIC -ffp-contract=off).
 #include "substep_chain.cuh"
 
-template <int D, int K, bool IMP, bool TER, bool WLD>
+template <int D, int K, bool IMP, bool TER, bool WLD, bool LEG, bool FIX>
 static void run_all(const float* x, float* y, const float* cst, int n) {
-  for (int i = 0; i < n; ++i) rl::Chain<D, K, IMP, TER, WLD>::run(x, y, cst, n, i);
+  for (int i = 0; i < n; ++i)
+    rl::Chain<D, K, IMP, TER, WLD, LEG, FIX>::run(x, y, cst, n, i);
+}
+
+template <int D, int K, bool IMP, bool TER, bool WLD, bool LEG>
+static void run_fixed(const float* x, float* y, const float* cst, int n,
+                      int fixed_base) {
+  if constexpr (LEG) {
+    if (fixed_base) {
+      run_all<D, K, IMP, TER, WLD, LEG, true>(x, y, cst, n);
+      return;
+    }
+  }
+  run_all<D, K, IMP, TER, WLD, LEG, false>(x, y, cst, n);
+}
+
+template <int D, int K, bool IMP, bool TER, bool WLD>
+static void run_legacy(const float* x, float* y, const float* cst, int n,
+                       int legacy, int fixed_base) {
+  if (legacy) run_fixed<D, K, IMP, TER, WLD, true>(x, y, cst, n, fixed_base);
+  else run_fixed<D, K, IMP, TER, WLD, false>(x, y, cst, n, fixed_base);
 }
 
 template <int D, int K, bool IMP, bool TER>
 static void run_world(const float* x, float* y, const float* cst, int n,
-                      int has_world) {
-  if (has_world) run_all<D, K, IMP, TER, true>(x, y, cst, n);
-  else run_all<D, K, IMP, TER, false>(x, y, cst, n);
+                      int has_world, int legacy, int fixed_base) {
+  if (has_world) run_legacy<D, K, IMP, TER, true>(x, y, cst, n, legacy, fixed_base);
+  else run_legacy<D, K, IMP, TER, false>(x, y, cst, n, legacy, fixed_base);
 }
 
 template <int D, int K>
 static void run_layout(const float* x, float* y, const float* cst, int n,
-                       int has_imp, int has_terrain, int has_world) {
-  if (has_imp && has_terrain) run_world<D, K, true, true>(x, y, cst, n, has_world);
-  else if (has_imp) run_world<D, K, true, false>(x, y, cst, n, has_world);
-  else if (has_terrain) run_world<D, K, false, true>(x, y, cst, n, has_world);
-  else run_world<D, K, false, false>(x, y, cst, n, has_world);
+                       int has_imp, int has_terrain, int has_world,
+                       int legacy, int fixed_base) {
+  if (has_imp && has_terrain)
+    run_world<D, K, true, true>(x, y, cst, n, has_world, legacy, fixed_base);
+  else if (has_imp)
+    run_world<D, K, true, false>(x, y, cst, n, has_world, legacy, fixed_base);
+  else if (has_terrain)
+    run_world<D, K, false, true>(x, y, cst, n, has_world, legacy, fixed_base);
+  else
+    run_world<D, K, false, false>(x, y, cst, n, has_world, legacy, fixed_base);
 }
 
-// Returns 0, or 1 for a limb layout that is not compiled.
+// Returns 0, or 1 for a limb layout that is not compiled or a fixed base
+// without the legacy contact model.
 extern "C" int rl_physics_step_host(const float* x, float* y,
                                     const float* cst, int n, int D, int K,
                                     int has_imp, int has_terrain,
-                                    int has_world) {
+                                    int has_world, int legacy,
+                                    int fixed_base) {
+  if (fixed_base && !legacy) return 1;
   if (D == 3 && K == 4) {
-    run_layout<3, 4>(x, y, cst, n, has_imp, has_terrain, has_world);
+    run_layout<3, 4>(x, y, cst, n, has_imp, has_terrain, has_world, legacy,
+                     fixed_base);
     return 0;
   }
   if (D == 1 && K == 2) {
-    run_layout<1, 2>(x, y, cst, n, has_imp, has_terrain, has_world);
+    run_layout<1, 2>(x, y, cst, n, has_imp, has_terrain, has_world, legacy,
+                     fixed_base);
     return 0;
   }
   return 1;

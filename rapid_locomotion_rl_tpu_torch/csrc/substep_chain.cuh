@@ -8,6 +8,17 @@
 // With WLD every substep also adds the penalty force of every collision
 // sphere against every world box (the walls of the HLP corridor, placed at
 // the env origin that the input holds): ops/soa_physics.py::box_forces_soa.
+// With LEG the ground contact is the legacy penalty model instead of the
+// apparent-inertia solve (ops/soa_physics.py::legacy_contact_force: a
+// spring-damper per sphere with regularised Coulomb friction against the
+// body mass, at the sphere centers; no inverse apparent inertia, no free
+// dynamics pass, no torsion). With FIX the base is fixed: no base
+// acceleration (the 6x6 solve is skipped), a zero base mobility, the base
+// velocities zeroed and the base pose not integrated. FIX comes only with
+// LEG: under the apparent model a fixed base has a zero base mobility, a
+// singular inverse apparent inertia and NaN in the reference (the JAX
+// package's SoA step), so that pair is refused
+// (ops/soa_physics.py::check_supported) and not compiled.
 //
 // It computes what ops/soa_physics.py::substep_chain computes, operation for
 // operation and in the same order, for ONE env. The same source builds under
@@ -18,9 +29,9 @@
 // that neighbouring threads (envs) read neighbouring addresses. The robot
 // model is a flat float32 table `cst` packed once per model by
 // ops/cuda_physics.py::pack_constants; its layout is the RL_* offsets below.
-// Only the limb layout (D levels x K limbs), the implicit-PD switch, the
-// terrain switch and the world switch are compile-time constants; loops over
-// bodies, geoms and boxes run at run time.
+// Only the limb layout (D levels x K limbs) and the implicit-PD, terrain,
+// world, legacy-contact and fixed-base switches are compile-time constants;
+// loops over bodies, geoms and boxes run at run time.
 #pragma once
 
 #include <math.h>
@@ -49,7 +60,11 @@
 #define RL_H_MASS0 11
 #define RL_H_NG 12
 #define RL_H_NR 13
-#define RL_HDR 16
+#define RL_H_K 14     // contact stiffness (legacy model)
+#define RL_H_DAMP 15  // contact damping (legacy model)
+#define RL_H_KDT 16   // stiffness dt, in float64 then rounded
+#define RL_H_VEPS 17  // friction_vel_eps (legacy model)
+#define RL_HDR 24
 // base block: com0[3], inertia0[9]
 #define RL_BASE RL_HDR
 #define RL_BASE_SIZE 12
@@ -410,6 +425,25 @@ RL_HD V3 world_force(const float* w, V3 origin, V3 pg, V3 vg, float rad,
   return total;
 }
 
+// ---- legacy ground contact ----------------------------------------------------
+// Penalty force on one sphere (center pg, velocity vg) against the ground of
+// height h and unit normal n under it: the spring-damper along n, its
+// damping scaled by the env's zeta, and regularised Coulomb friction, each
+// solved implicitly against m_eff (the mass of the geom's body).
+RL_HD V3 legacy_force(V3 pg, V3 vg, float h, V3 n, float rad, float m_eff,
+                      float zeta, float mu, const float* hdr, float dt) {
+  const float depth = fmaxf(h + rad - pg.v[2], 0.0f);
+  const float in_c = depth > 0.0f ? 1.0f : 0.0f;
+  const float v_n = v3_dot(vg, n);
+  const V3 v_t = v3_sub(vg, v3_scale(n, v_n));
+  const float c_n = zeta * hdr[RL_H_DAMP] + hdr[RL_H_KDT];
+  const float f_n = fmaxf((hdr[RL_H_K] * depth - c_n * v_n) / (1.0f + c_n * dt / m_eff), 0.0f) * in_c;
+  const float vt_norm = v3_norm(v_t, 1e-12f);
+  const float c_t = mu * f_n / (vt_norm + hdr[RL_H_VEPS]);
+  const float ft_scale = -(c_t / (1.0f + c_t * dt / m_eff));
+  return v3_add(v3_scale(n, f_n), v3_scale(v_t, ft_scale));
+}
+
 RL_HD SM inv_psd6(const SM& M) {
   float L[6][6], cols[6][6];
   chol6(M, L);
@@ -427,22 +461,26 @@ RL_HD SM inv_psd6(const SM& M) {
 }
 
 // ---- the per-env chain ----------------------------------------------------
-template <int D, int K, bool IMP, bool TER, bool WLD>
+template <int D, int K, bool IMP, bool TER, bool WLD, bool LEG, bool FIX>
 struct Chain {
+  static_assert(LEG || !FIX, "a fixed base needs the legacy contact model");
   static constexpr int NL = D * K;       // limb bodies = joints
   static constexpr int NB = NL + 1;      // + base
   static constexpr int TNG = TER ? RL_MAX_NG : 1;  // terrain geom slots
+  static constexpr int NPHI = LEG ? 1 : NB;        // apparent-inertia slots
+  static constexpr int NLAM = LEG ? 1 : RL_MAX_NG;
 
   // slot of the parent of limb slot l (chains hang off the base)
   static RL_HD int parent_slot(int l) { return l < K ? 0 : 1 + (l - K); }
 
   // Bias sweep + base acceleration + forward sweep for one external-force
   // set (f_ext == nullptr: none); writes the body accelerations a_sp and qdd
-  // (by slot). Mirrors soa_physics.substep_chain.bias_and_accels.
+  // (by slot). Mirrors soa_physics.substep_chain.bias_and_accels; a fixed
+  // base accelerates at -g_b (gravity in base coordinates), no solve.
   static RL_HD void bias_and_accels(
       const SV* pA_vel, const SV* f_ext, const float* tau_t, const SM* Ia_s,
       const SV* c_sp, const SV* U, const float* dinv, const M3* E_up,
-      const SM& IA0, const float* cst, SV* a_sp, float* qdd) {
+      const SM& IA0, V3 g_b, const float* cst, SV* a_sp, float* qdd) {
     SV pA[NB];
 #pragma unroll 1
     for (int b = 0; b < NB; ++b) pA[b] = f_ext ? sv_sub(pA_vel[b], f_ext[b]) : pA_vel[b];
@@ -461,8 +499,12 @@ struct Chain {
       const int par = parent_slot(s);
       pA[par] = sv_add(pA[par], xform_force_to_parent(E_up[b], v3_load(c + RL_S_P), pa));
     }
-    const SV sol = solve_psd6(IA0, pA[0]);
-    a_sp[0] = sv(v3_scale(sol.w, -1.0f), v3_scale(sol.l, -1.0f));
+    if constexpr (FIX) {
+      a_sp[0] = sv(v3_zero(), v3_scale(g_b, -1.0f));
+    } else {
+      const SV sol = solve_psd6(IA0, pA[0]);
+      a_sp[0] = sv(v3_scale(sol.w, -1.0f), v3_scale(sol.l, -1.0f));
+    }
 #pragma unroll 1
     for (int s = 0; s < NL; ++s) {
       const float* c = cst + RL_HDR + RL_BASE_SIZE + s * RL_SLOT;
@@ -518,6 +560,7 @@ struct Chain {
     const V3 com_disp = v3(RL_X(cp + 1), RL_X(cp + 2), RL_X(cp + 3));
     const float restitution = RL_X(cp + 4);
     const float mu = RL_X(cp + 5);
+    const float zeta = fminf(fmaxf(1.0f - restitution, 0.08f), 1.0f);  // legacy
 
     // terrain under each geom, in the channel order of the TPU kernel: ng
     // heights, then ng normals (x, y, z per geom); read once per call
@@ -548,8 +591,8 @@ struct Chain {
     SM IA[NB], Ia_s[NB];
     SV v_sp[NB], c_sp[NB], pA_vel[NB], U[NB], a_sp[NB], f_ext[NB];
     float dinv[NB], tau_t[NL], qdd[NL];
-    M3 phiA[NB], phiB[NB], phiD[NB];     // world-frame Phi blocks (substep 0)
-    M3 lam_w[RL_MAX_NG];                  // per-geom inverse apparent inertia
+    M3 phiA[NPHI], phiB[NPHI], phiD[NPHI];  // world-frame Phi blocks (substep 0)
+    M3 lam_w[NLAM];                         // per-geom inverse apparent inertia
     V3 rep[RL_MAX_NR];
     const int off_rep = 13 + 2 * NL;
     const int off_gpos = off_rep + 3 * nr;
@@ -631,52 +674,55 @@ struct Chain {
       const V3 g_b = m3_tvec(R0, gvec);
 
       // ---- inverse apparent inertia per body, world frame (substep 0) ---------
-      if (sub == 0) {
-        SM Phi[NB];
-        Phi[0] = sm_scale(inv_psd6(IA[0]), base_split);
+      if constexpr (!LEG) {
+        if (sub == 0) {
+          SM Phi[NB];
+          Phi[0] = sm_scale(inv_psd6(IA[0]), base_split);
 #pragma unroll 1
-        for (int s = 0; s < NL; ++s) {
-          const float* c = cslot + s * RL_SLOT;
-          const int b = 1 + s;
-          const SV Si = sv(v3_load(c + RL_S_AX), v3_zero());
-          const SM Phi_x = xform_phi_to_child(E_up[b], v3_load(c + RL_S_P), Phi[parent_slot(s)]);
-          const SV MU = sm_vec(Phi_x, U[b]);
-          const float uMu = sv_dot(U[b], MU);
-          SM Phi_b = sm_add(Phi_x, sm_scale(sm_outer(Si, MU), -dinv[b]));
-          Phi_b = sm_add(Phi_b, sm_scale(sm_outer(MU, Si), -dinv[b]));
-          Phi_b = sm_add(Phi_b, sm_scale(sm_outer(Si, Si), dinv[b] + uMu * dinv[b] * dinv[b]));
-          Phi[b] = Phi_b;
-        }
+          for (int s = 0; s < NL; ++s) {
+            const float* c = cslot + s * RL_SLOT;
+            const int b = 1 + s;
+            const SV Si = sv(v3_load(c + RL_S_AX), v3_zero());
+            const SM Phi_x = xform_phi_to_child(E_up[b], v3_load(c + RL_S_P), Phi[parent_slot(s)]);
+            const SV MU = sm_vec(Phi_x, U[b]);
+            const float uMu = sv_dot(U[b], MU);
+            SM Phi_b = sm_add(Phi_x, sm_scale(sm_outer(Si, MU), -dinv[b]));
+            Phi_b = sm_add(Phi_b, sm_scale(sm_outer(MU, Si), -dinv[b]));
+            Phi_b = sm_add(Phi_b, sm_scale(sm_outer(Si, Si), dinv[b] + uMu * dinv[b] * dinv[b]));
+            Phi[b] = Phi_b;
+          }
 #pragma unroll 1
-        for (int b = 0; b < NB; ++b) {
-          const M3 Rt = m3_t(R_b[b]);
-          phiA[b] = m3_mul(m3_mul(R_b[b], Phi[b].b[0][0]), Rt);
-          phiB[b] = m3_mul(m3_mul(R_b[b], Phi[b].b[0][1]), Rt);
-          phiD[b] = m3_mul(m3_mul(R_b[b], Phi[b].b[1][1]), Rt);
+          for (int b = 0; b < NB; ++b) {
+            const M3 Rt = m3_t(R_b[b]);
+            phiA[b] = m3_mul(m3_mul(R_b[b], Phi[b].b[0][0]), Rt);
+            phiB[b] = m3_mul(m3_mul(R_b[b], Phi[b].b[0][1]), Rt);
+            phiD[b] = m3_mul(m3_mul(R_b[b], Phi[b].b[1][1]), Rt);
+          }
         }
       }
 
-      // ---- free dynamics -> free point accelerations ---------------------------
-      bias_and_accels(pA_vel, nullptr, tau_t, Ia_s, c_sp, U, dinv, E_up, IA[0], cst, a_sp, qdd);
-
-      // per-body active-contact counts for the Jacobi mass split
+      // ---- free dynamics -> free point accelerations (apparent model) ---------
       float n_active[NB];
 #pragma unroll 1
       for (int b = 0; b < NB; ++b) { n_active[b] = 0.0f; f_ext[b] = sv(v3_zero(), v3_zero()); }
+      if constexpr (!LEG) {
+        bias_and_accels(pA_vel, nullptr, tau_t, Ia_s, c_sp, U, dinv, E_up, IA[0], g_b, cst, a_sp, qdd);
+        // per-body active-contact counts for the Jacobi mass split
 #pragma unroll 1
-      for (int g = 0; g < ng; ++g) {
-        const float* cg = cgeom + g * RL_GEOM;
-        const int b = (int)cg[RL_G_SLOT];
-        const V3 pg = v3_add(m3_vec(R_b[b], v3_load(cg + RL_G_OFF)), p_b[b]);
-        const float h = TER ? g_h[g] : g_h[0];
-        n_active[b] += (h + cg[RL_G_RAD] - pg.v[2] > 0.0f) ? 1.0f : 0.0f;
+        for (int g = 0; g < ng; ++g) {
+          const float* cg = cgeom + g * RL_GEOM;
+          const int b = (int)cg[RL_G_SLOT];
+          const V3 pg = v3_add(m3_vec(R_b[b], v3_load(cg + RL_G_OFF)), p_b[b]);
+          const float h = TER ? g_h[g] : g_h[0];
+          n_active[b] += (h + cg[RL_G_RAD] - pg.v[2] > 0.0f) ? 1.0f : 0.0f;
+        }
       }
       if (sub == 0) {
 #pragma unroll 1
         for (int r = 0; r < nr; ++r) rep[r] = v3_zero();
       }
 
-      // ---- per-geom contact solve; forces gathered per body in geom order -----
+      // ---- per-geom contact forces; gathered per body in geom order -----------
       // (the world forces in their own sums, added to the ground's after)
       V3 Fw[NB], Nw[NB], WFw[WLD ? NB : 1], WNw[WLD ? NB : 1];
 #pragma unroll 1
@@ -699,49 +745,56 @@ struct Chain {
           RL_Y(off_gpos + 3 * g + 1) = pg.v[1];
           RL_Y(off_gpos + 3 * g + 2) = pg.v[2];
         }
-        const float in_c = (h + rad - pg.v[2] > 0.0f) ? 1.0f : 0.0f;
-        // contact point on the sphere surface
-        const V3 p_c = v3_sub(pg, v3_scale(nrm, rad));
-        const V3 r_w = v3_sub(p_c, p_b[b]);
-        const V3 v_c = v3_add(vg, v3_cross(w_b[b], v3_sub(p_c, pg)));
-        if (sub == 0) {
-          const M3 Sm = m3_scale(m3_skew(r_w), -1.0f);
-          const M3 Smt = m3_t(Sm);
-          const M3 SmB = m3_mul(Sm, phiB[b]);
-          lam_w[g] = m3_add(m3_add(m3_mul(m3_mul(Sm, phiA[b]), Smt), m3_add(SmB, m3_t(SmB))), phiD[b]);
-        }
-        const V3 a_lin_true = v3_add(a_sp[b].l, m3_tvec(R_b[b], gvec));
-        const V3 wdot_w = m3_vec(R_b[b], a_sp[b].w);
-        const V3 a_org_w = v3_add(m3_vec(R_b[b], a_lin_true), v3_cross(w_b[b], v_b[b]));
-        const V3 a_pt = v3_add(v3_add(a_org_w, v3_cross(wdot_w, r_w)),
-                               v3_cross(w_b[b], v3_cross(w_b[b], r_w)));
+        V3 gf, tq;
+        if constexpr (LEG) {
+          // the penalty force acts at the sphere center
+          gf = legacy_force(pg, vg, h, nrm, rad, cg[RL_G_MEFF], zeta, mu, cst, dt);
+          tq = v3_cross(v3_sub(pg, p_b[b]), gf);
+        } else {
+          const float in_c = (h + rad - pg.v[2] > 0.0f) ? 1.0f : 0.0f;
+          // contact point on the sphere surface
+          const V3 p_c = v3_sub(pg, v3_scale(nrm, rad));
+          const V3 r_w = v3_sub(p_c, p_b[b]);
+          const V3 v_c = v3_add(vg, v3_cross(w_b[b], v3_sub(p_c, pg)));
+          if (sub == 0) {
+            const M3 Sm = m3_scale(m3_skew(r_w), -1.0f);
+            const M3 Smt = m3_t(Sm);
+            const M3 SmB = m3_mul(Sm, phiB[b]);
+            lam_w[g] = m3_add(m3_add(m3_mul(m3_mul(Sm, phiA[b]), Smt), m3_add(SmB, m3_t(SmB))), phiD[b]);
+          }
+          const V3 a_lin_true = v3_add(a_sp[b].l, m3_tvec(R_b[b], gvec));
+          const V3 wdot_w = m3_vec(R_b[b], a_sp[b].w);
+          const V3 a_org_w = v3_add(m3_vec(R_b[b], a_lin_true), v3_cross(w_b[b], v_b[b]));
+          const V3 a_pt = v3_add(v3_add(a_org_w, v3_cross(wdot_w, r_w)),
+                                 v3_cross(w_b[b], v3_cross(w_b[b], r_w)));
 
-        // TGS-style velocity constraint solve against lam_w[g]
-        const float depth = fmaxf(h + rad - pg.v[2], 0.0f);
-        const V3 v_pred = v3_add(v_c, v3_scale(a_pt, dt));
-        const float v_n_now = v3_dot(v_c, nrm);
-        const float bias = fminf(erp_dt * depth, max_depen);
-        const float bounce = (v_n_now < -bounce_thr) ? -restitution * v_n_now : 0.0f;
-        const float v_tgt_n = fmaxf(bias, bounce);
-        const V3 dv = v3_sub(v3_scale(nrm, v_tgt_n), v_pred);
-        const float split = fmaxf(n_active[b], 1.0f);
-        const M3 lam_g = m3_scale(lam_w[g], split);
-        const V3 f = m3_solve(lam_g, v3_scale(dv, inv_dt));
-        float f_n = v3_dot(f, nrm);
-        const V3 f_t = v3_sub(f, v3_scale(nrm, f_n));
-        f_n = fmaxf(f_n, 0.0f) * in_c;
-        const float ft_norm = v3_norm(f_t, 1e-18f);
-        const float fscale = fminf(1.0f, mu * f_n / (ft_norm + 1e-9f)) * in_c;
-        const V3 gf = v3_add(v3_scale(nrm, f_n), v3_scale(f_t, fscale));
+          // TGS-style velocity constraint solve against lam_w[g]
+          const float depth = fmaxf(h + rad - pg.v[2], 0.0f);
+          const V3 v_pred = v3_add(v_c, v3_scale(a_pt, dt));
+          const float v_n_now = v3_dot(v_c, nrm);
+          const float bias = fminf(erp_dt * depth, max_depen);
+          const float bounce = (v_n_now < -bounce_thr) ? -restitution * v_n_now : 0.0f;
+          const float v_tgt_n = fmaxf(bias, bounce);
+          const V3 dv = v3_sub(v3_scale(nrm, v_tgt_n), v_pred);
+          const float split = fmaxf(n_active[b], 1.0f);
+          const M3 lam_g = m3_scale(lam_w[g], split);
+          const V3 f = m3_solve(lam_g, v3_scale(dv, inv_dt));
+          float f_n = v3_dot(f, nrm);
+          const V3 f_t = v3_sub(f, v3_scale(nrm, f_n));
+          f_n = fmaxf(f_n, 0.0f) * in_c;
+          const float ft_norm = v3_norm(f_t, 1e-18f);
+          const float fscale = fminf(1.0f, mu * f_n / (ft_norm + 1e-9f)) * in_c;
+          gf = v3_add(v3_scale(nrm, f_n), v3_scale(f_t, fscale));
 
-        V3 tq = v3_cross(v3_sub(p_c, p_b[b]), gf);
-        if (a_patch > 0.0f) {
-          // torsional friction, clamped to the cone mu * f_n * patch radius
-          const float w_n = v3_dot(w_b[b], nrm);
-          const float r_ang = fmaxf(v3_dot(nrm, m3_vec(phiA[b], nrm)) * split, 1e-6f);
-          const float tau_max = mu * f_n * a_patch;
-          const float tau_n = fminf(fmaxf(-w_n / (dt * r_ang), -tau_max), tau_max);
-          tq = v3_add(tq, v3_scale(nrm, tau_n));
+          tq = v3_cross(v3_sub(p_c, p_b[b]), gf);
+          if (a_patch > 0.0f) {
+            // torsional friction, clamped to the cone mu * f_n * patch radius
+            const float w_n = v3_dot(w_b[b], nrm);
+            const float r_ang = fmaxf(v3_dot(nrm, m3_vec(phiA[b], nrm)) * split, 1e-6f);
+            const float tau_max = mu * f_n * a_patch;
+            const float tau_n = fminf(fmaxf(-w_n / (dt * r_ang), -tau_max), tau_max);
+            tq = v3_add(tq, v3_scale(nrm, tau_n));
+          }
         }
         Fw[b] = v3_add(Fw[b], gf);
         Nw[b] = v3_add(Nw[b], tq);
@@ -774,17 +827,22 @@ struct Chain {
         }
       }
 
-      bias_and_accels(pA_vel, f_ext, tau_t, Ia_s, c_sp, U, dinv, E_up, IA[0], cst, a_sp, qdd);
-      const V3 a0w = a_sp[0].w;
-      const V3 a0l = v3_add(a_sp[0].l, g_b);
+      bias_and_accels(pA_vel, f_ext, tau_t, Ia_s, c_sp, U, dinv, E_up, IA[0], g_b, cst, a_sp, qdd);
 
-      // ---- integrate (semi-implicit) -------------------------------------------
-      const V3 wdot_w = m3_vec(R0, a0w);
-      const V3 acc_w = v3_add(m3_vec(R0, a0l), v3_cross(base_w, base_v));
-      base_w = v3_add(base_w, v3_scale(wdot_w, dt));
-      base_v = v3_add(base_v, v3_scale(acc_w, dt));
-      base_pos = v3_add(base_pos, v3_scale(base_v, dt));
-      quat_integrate(base_quat, base_w, half_dt);
+      // ---- integrate (semi-implicit; a fixed base stays where it is) ----------
+      if constexpr (FIX) {
+        base_w = v3_zero();
+        base_v = v3_zero();
+      } else {
+        const V3 a0w = a_sp[0].w;
+        const V3 a0l = v3_add(a_sp[0].l, g_b);
+        const V3 wdot_w = m3_vec(R0, a0w);
+        const V3 acc_w = v3_add(m3_vec(R0, a0l), v3_cross(base_w, base_v));
+        base_w = v3_add(base_w, v3_scale(wdot_w, dt));
+        base_v = v3_add(base_v, v3_scale(acc_w, dt));
+        base_pos = v3_add(base_pos, v3_scale(base_v, dt));
+        quat_integrate(base_quat, base_w, half_dt);
+      }
 #pragma unroll 1
       for (int s = 0; s < NL; ++s) {
         const float vl = cslot[s * RL_SLOT + RL_S_VLIM];

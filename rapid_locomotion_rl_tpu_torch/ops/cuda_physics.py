@@ -12,8 +12,12 @@ The kernel library is built at first use by ``nvcc`` into
 sources have a plain C interface and include no PyTorch header, so the
 build takes seconds. Only the variants the env runs are built for the
 card: the quadruped limb layout (3 x 4) with the implicit-damping input, on
-the plane (Go1), on terrain (Mini Cheetah, trimesh), and on terrain with
-the world boxes of the HLP corridor. The same per-env body also builds
+the plane (Go1), on terrain (Mini Cheetah, trimesh), on terrain with the
+world boxes of the HLP corridor, on terrain with the legacy contact model
+(``SimCfg.contact_model = "legacy"``), and on terrain with the legacy
+contact model and a fixed base (``AssetCfg.fix_base_link``; a fixed base
+under the apparent model is refused on every device by
+:func:`.soa_physics.check_supported`). The same per-env body also builds
 with ``g++`` into a CPU library, in every variant
 (:func:`build_host_library`), which the CPU tests hold against the plain
 version.
@@ -49,8 +53,9 @@ from .limb_dynamics import LimbLayout, np_spatial_inertia
 from .world import WorldBoxes
 from .contact import TerrainGrid, Window
 from .physics import StepOutput
-from .soa_physics import (_v3, check_supported, physics_step_soa,
-                          sample_geom_terrain, static_friction)
+from .soa_physics import (FIXED_BASE_APPARENT, _v3, check_supported,
+                          physics_step_soa, sample_geom_terrain,
+                          static_friction)
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
@@ -62,7 +67,7 @@ HOST_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC", "-ffp-contract=off",
               "-Wno-unknown-pragmas")
 
 # constant-table layout; mirrors the RL_* offsets of csrc/substep_chain.cuh
-HDR = 16
+HDR = 24
 BASE_SIZE = 12
 SLOT = 66
 GEOM = 8
@@ -133,7 +138,7 @@ def load_host_library(path: str):
     fn = lib.rl_physics_step_host
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int]
     fn.restype = ctypes.c_int
     return lib
 
@@ -157,12 +162,14 @@ def pack_constants(model, sim_cfg, layout: LimbLayout,
     nbox = 0 if world_boxes is None else int(world_boxes.centers.shape[0])
     t = np.zeros(HDR + BASE_SIZE + D * K * SLOT + model.ng * GEOM + W_HDR
                  + nbox * W_BOX)
-    t[0:14] = [nsub, dt, 1.0 / dt, 0.5 * dt, float(sim_cfg.gravity[2]),
+    t[0:18] = [nsub, dt, 1.0 / dt, 0.5 * dt, float(sim_cfg.gravity[2]),
                sim_cfg.erp / dt, sim_cfg.max_depenetration_velocity,
                sim_cfg.bounce_threshold_velocity, sim_cfg.joint_friction,
                float(getattr(sim_cfg, "torsional_patch_radius", 0.0)),
                float(max(int(np.sum(parent == 0)), 1)),
-               float(model.mass[0]), model.ng, model.nr]
+               float(model.mass[0]), model.ng, model.nr,
+               sim_cfg.contact_stiffness, sim_cfg.contact_damping,
+               sim_cfg.contact_stiffness * dt, sim_cfg.friction_vel_eps]
     t[HDR:HDR + 3] = model.com[0]
     t[HDR + 3:HDR + 12] = np.asarray(model.inertia[0]).reshape(-1)
     slot_of_body = np.zeros(model.nb, np.int64)
@@ -296,18 +303,26 @@ def _check_world(world_boxes, env_origin):
         raise ValueError("world boxes and env origins go together")
 
 
+def legacy_contact(sim_cfg) -> bool:
+    return getattr(sim_cfg, "contact_model", "apparent") == "legacy"
+
+
 class PhysicsStepKernel:
     """The built CUDA library, the constant tables, and the launch counts.
 
     ``launches`` grows by one at each kernel launch and nowhere else;
-    ``terrain_launches`` counts the launches of the terrain variant among
-    them, and ``world_launches`` those of the terrain + world variant (also
-    counted as terrain launches)."""
+    ``terrain_launches`` counts the launches on terrain among them,
+    ``world_launches`` those with world boxes, ``legacy_launches`` those
+    with the legacy contact model and ``fixed_base_launches`` those with a
+    fixed base (a launch counts in each that applies: a fixed-base launch
+    is also a legacy and a terrain launch)."""
 
     def __init__(self):
         self.launches = 0
         self.terrain_launches = 0
         self.world_launches = 0
+        self.legacy_launches = 0
+        self.fixed_base_launches = 0
         self.build_log = ""
         self.library_path = None
         self._fn = None
@@ -322,7 +337,7 @@ class PhysicsStepKernel:
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                            ctypes.c_int, ctypes.c_int, ctypes.c_int,
                            ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_void_p]
+                           ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
             fn.restype = ctypes.c_int
             self._lib, self._fn = lib, fn
             self.library_path, self.build_log = path, log
@@ -352,7 +367,8 @@ class PhysicsStepKernel:
 
     def launch_packed(self, x: torch.Tensor, y: torch.Tensor,
                       cst: torch.Tensor, layout: LimbLayout, has_imp: bool,
-                      has_terrain: bool = False, has_world: bool = False):
+                      has_terrain: bool = False, has_world: bool = False,
+                      legacy: bool = False, fixed_base: bool = False):
         """Launch on packed [C_in, N] input and [C_out, N] output arrays on
         the current stream; raises if the launch is refused."""
         if (layout.D, layout.K) != CUDA_LAYOUT or not has_imp:
@@ -363,6 +379,12 @@ class PhysicsStepKernel:
         if has_world and not has_terrain:
             raise NotImplementedError(
                 "the CUDA kernel's world variant is built on terrain only")
+        if (legacy or fixed_base) and (has_world or not has_terrain):
+            raise NotImplementedError(
+                "the CUDA kernel's legacy and fixed-base variants are built "
+                "on terrain without world boxes only")
+        if fixed_base and not legacy:
+            raise ValueError(FIXED_BASE_APPARENT)
         for t in (x, y, cst):
             if (t.device.type != "cuda" or t.dtype != torch.float32
                     or not t.is_contiguous()):
@@ -376,16 +398,19 @@ class PhysicsStepKernel:
         err = fn(ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(y.data_ptr()),
                  ctypes.c_void_p(cst.data_ptr()), x.shape[1], layout.D,
                  layout.K, int(has_imp), int(has_terrain), int(has_world),
-                 ctypes.c_void_p(stream))
+                 int(legacy), int(fixed_base), ctypes.c_void_p(stream))
         if err != 0:
             raise RuntimeError(f"physics kernel launch failed: cudaError {err}")
         self.launches += 1
         self.terrain_launches += int(has_terrain)
         self.world_launches += int(has_world)
+        self.legacy_launches += int(legacy)
+        self.fixed_base_launches += int(fixed_base)
 
     def __call__(self, model, sim_cfg, state, tau, params, implicit_damp,
                  layout, terrain=None, terrain_window=None, world_boxes=None,
-                 env_origin=None, world_friction=1.0) -> StepOutput:
+                 env_origin=None, world_friction=1.0,
+                 fixed_base: bool = False) -> StepOutput:
         device = state.q.device
         _check_world(world_boxes, env_origin)
         _check_inputs(model, state, tau, params, implicit_damp, device,
@@ -399,7 +424,8 @@ class PhysicsStepKernel:
         y = torch.empty((out_channels(model), x.shape[1]),
                         dtype=torch.float32, device=device)
         self.launch_packed(x, y, cst, layout, implicit_damp is not None,
-                           terrain is not None, world_boxes is not None)
+                           terrain is not None, world_boxes is not None,
+                           legacy_contact(sim_cfg), fixed_base)
         return unpack_outputs(model, y)
 
 
@@ -425,12 +451,14 @@ def physics_step_cuda(
     the env's hoisted per-step window into the grid
     (:func:`.soa_physics.sample_geom_terrain`); ``world_boxes`` sit at each
     env's ``env_origin``."""
-    layout = check_supported(model, sim_cfg, fixed_base, terrain, world_boxes)
+    layout = check_supported(model, sim_cfg, terrain, world_boxes,
+                             fixed_base)
     _check_world(world_boxes, env_origin)
     device = state.q.device
     if device.type == "cpu":
         return physics_step_soa(model, sim_cfg, state, tau, params,
-                                terrain=terrain, implicit_damp=implicit_damp,
+                                terrain=terrain, fixed_base=fixed_base,
+                                implicit_damp=implicit_damp,
                                 world_boxes=world_boxes,
                                 env_origin=env_origin,
                                 world_friction=world_friction,
@@ -439,7 +467,7 @@ def physics_step_cuda(
         raise ValueError(f"no physics step for device {device}")
     return KERNEL(model, sim_cfg, state, tau, params, implicit_damp, layout,
                   terrain, terrain_window, world_boxes, env_origin,
-                  world_friction)
+                  world_friction, fixed_base)
 
 
 def physics_step_host(lib, model, sim_cfg, state: SimState, tau,
@@ -449,11 +477,12 @@ def physics_step_host(lib, model, sim_cfg, state: SimState, tau,
                       terrain_window: Optional[Window] = None,
                       world_boxes: Optional[WorldBoxes] = None,
                       env_origin: Optional[torch.Tensor] = None,
-                      world_friction: float = 1.0) -> StepOutput:
+                      world_friction: float = 1.0,
+                      fixed_base: bool = False) -> StepOutput:
     """The kernel's per-env body built for the CPU (``lib`` from
     :func:`load_host_library`), on CPU tensors, through the same packing."""
     layout = check_supported(model, sim_cfg, terrain=terrain,
-                             world_boxes=world_boxes)
+                             world_boxes=world_boxes, fixed_base=fixed_base)
     _check_world(world_boxes, env_origin)
     _check_inputs(model, state, tau, params, implicit_damp,
                   torch.device("cpu"), terrain, env_origin)
@@ -469,7 +498,8 @@ def physics_step_host(lib, model, sim_cfg, state: SimState, tau,
         ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(y.data_ptr()),
         ctypes.c_void_p(cst.data_ptr()), N, layout.D, layout.K,
         int(implicit_damp is not None), int(terrain is not None),
-        int(world_boxes is not None))
+        int(world_boxes is not None), int(legacy_contact(sim_cfg)),
+        int(fixed_base))
     if err != 0:
         raise RuntimeError(f"host physics step refused layout "
                            f"{layout.D}x{layout.K}")

@@ -9,15 +9,20 @@ algebra of :mod:`.soa`. The CUDA kernel (``csrc/substep_chain.cuh``,
 bound in :mod:`.cuda_physics`) computes the same function for one env per
 thread; this module is what it is held against, and what the CPU runs.
 
-It covers the apparent-inertia contact model with a floating base, on the
-plane z=0 or on a terrain height grid, optionally with world boxes (the
-walls of the HLP corridor, :mod:`.world`). With a grid, the height
-and normal under every geom are looked up once per call at the entry state
+It covers both contact models of ``SimCfg.contact_model``: "apparent"
+(the TGS-style solve against the inverse apparent inertia) and "legacy"
+(a penalty spring-damper per sphere with regularised Coulomb friction
+against the body mass, applied at the sphere centers), with a floating
+base, or with the legacy model also a fixed one (``AssetCfg.fix_base_link``:
+no base acceleration, the base velocities zeroed and its pose not
+integrated), on the plane z=0 or on a
+terrain height grid, optionally with world boxes (the walls of the HLP
+corridor, :mod:`.world`). With a grid, the height and normal under every
+geom are looked up once per call at the entry state
 (:func:`sample_geom_terrain`, plain gathers) and enter the chain as inputs,
 as they enter the kernel. With world boxes, every substep adds the penalty
 force of every sphere against every box (:func:`box_forces_soa`), and each
-env's origin enters the chain as an input. The legacy contact model and a
-fixed base raise ``NotImplementedError``.
+env's origin enters the chain as an input.
 """
 
 from __future__ import annotations
@@ -48,10 +53,17 @@ def _const_v3(arr):
     return (float(arr[0]), float(arr[1]), float(arr[2]))
 
 
-def check_supported(model, sim_cfg, fixed_base=False, terrain=None,
-                    world_boxes=None) -> LimbLayout:
-    """The layout of ``model``, or an error for a variant this slice does
-    not port."""
+FIXED_BASE_APPARENT = (
+    "a fixed base needs contact_model='legacy': under the apparent model the "
+    "base has a zero mobility, the inverse apparent inertia of the spheres "
+    "on the base and the hips is singular, and the reference (the JAX "
+    "package's SoA step) returns NaN in every env")
+
+
+def check_supported(model, sim_cfg, terrain=None, world_boxes=None,
+                    fixed_base: bool = False) -> LimbLayout:
+    """The layout of ``model``, or an error for what the step does not
+    take."""
     layout = layout_for(model)
     if layout is None:
         raise NotImplementedError(
@@ -62,11 +74,11 @@ def check_supported(model, sim_cfg, fixed_base=False, terrain=None,
     if world_boxes is not None and not isinstance(world_boxes, WorldBoxes):
         raise TypeError(f"world_boxes must be WorldBoxes, not "
                         f"{type(world_boxes).__name__}")
-    if fixed_base:
-        raise NotImplementedError("a fixed base is not ported yet")
-    if getattr(sim_cfg, "contact_model", "apparent") != "apparent":
-        raise NotImplementedError(
-            "only the 'apparent' contact model is ported")
+    contact_model = getattr(sim_cfg, "contact_model", "apparent")
+    if contact_model not in ("apparent", "legacy"):
+        raise ValueError(f"unknown contact model {contact_model!r}")
+    if fixed_base and contact_model == "apparent":
+        raise ValueError(FIXED_BASE_APPARENT)
     return layout
 
 
@@ -150,9 +162,32 @@ def box_forces_soa(world_boxes: WorldBoxes, origin, pg, vg, radius: float,
     return total
 
 
+def legacy_contact_force(pg, vg, h, n, radius: float, m_eff: float, zeta,
+                         mu, sim_cfg, dt: float):
+    """Legacy penalty contact of one sphere against the ground (v3 of [N]
+    tensors): the JAX package's ``legacy_contact_force``, operation for
+    operation. A spring-damper along the ground normal ``n`` (damping
+    scaled by the per-env ``zeta``) and regularised Coulomb friction, each
+    solved implicitly against ``m_eff``, the mass of the geom's body."""
+    # the divisor as a float32 tensor on the device (see box_forces_soa)
+    m_eff_t = pg[0].new_tensor(m_eff)
+    depth = S.maximum(h + radius - pg[2], 0.0)
+    in_c = depth > 0.0
+    v_n = S.v3_dot(vg, n)
+    v_t = S.v3_sub(vg, S.v3_scale(n, v_n))
+    c_n = zeta * sim_cfg.contact_damping + sim_cfg.contact_stiffness * dt
+    f_n = S.maximum((sim_cfg.contact_stiffness * depth - c_n * v_n)
+                    / (1.0 + c_n * dt / m_eff_t), 0.0) * in_c
+    vt_norm = S.v3_norm(v_t, 1e-12)
+    c_t = mu * f_n / (vt_norm + sim_cfg.friction_vel_eps)
+    ft_scale = -(c_t / (1.0 + c_t * dt / m_eff_t))
+    return S.v3_add(S.v3_scale(n, f_n), S.v3_scale(v_t, ft_scale))
+
+
 def substep_chain(model, sim_cfg, layout: LimbLayout, comps: Dict,
                   world_boxes: Optional[WorldBoxes] = None,
-                  world_friction: float = 1.0) -> Dict:
+                  world_friction: float = 1.0,
+                  fixed_base: bool = False) -> Dict:
     """``num_substeps`` physics substeps as one elementwise chain.
 
     ``comps`` holds same-shaped [N] tensors:
@@ -166,10 +201,11 @@ def substep_chain(model, sim_cfg, layout: LimbLayout, comps: Dict,
       ground is the plane z=0
     - ``origin``: v3 of the env origins, with ``world_boxes``
 
-    Returns the updated state components plus
-    ``report`` (list of nr v3, world contact force per report body at
-    substep 0) and ``geom_pos`` (list of ng v3, world geom centers at
-    substep 0).
+    ``sim_cfg.contact_model`` picks the ground contact ("apparent" or
+    "legacy"); ``fixed_base`` pins the base. Returns the updated state
+    components plus ``report`` (list of nr v3, world contact force per
+    report body at substep 0) and ``geom_pos`` (list of ng v3, world geom
+    centers at substep 0).
     """
     D, K = layout.D, layout.K
     nsub = max(int(sim_cfg.num_substeps), 1)
@@ -211,9 +247,11 @@ def substep_chain(model, sim_cfg, layout: LimbLayout, comps: Dict,
     lim_hi = [float(x) for x in model.dof_upper]
     vel_lim = [float(x) for x in model.dof_velocity]
 
+    apparent = getattr(sim_cfg, "contact_model", "apparent") == "apparent"
     # Jacobi mass split of the base between the limbs that can load it
     # simultaneously
     base_split = float(max(int(np.sum(np.asarray(model.parent) == 0)), 1))
+    zeta = S.clip(1.0 - restitution, 0.08, 1.0)   # legacy damping scale
 
     for sub in range(nsub):
         # ---- FK (world frames per body, SoA) ---------------------------
@@ -386,8 +424,11 @@ def substep_chain(model, sim_cfg, layout: LimbLayout, comps: Dict,
                     pA[par] = S.sv_add(
                         pA[par],
                         S.xform_force_to_parent(E_up[b], p_tree[d][k], pa))
-            sol = S.solve_psd6(IA[0], pA[0])
-            a0 = (S.v3_scale(sol[0], -1.0), S.v3_scale(sol[1], -1.0))
+            if fixed_base:
+                a0 = (S.v3_zeros_like(base_pos[0]), S.v3_scale(g_b, -1.0))
+            else:
+                sol = S.solve_psd6(IA[0], pA[0])
+                a0 = (S.v3_scale(sol[0], -1.0), S.v3_scale(sol[1], -1.0))
             a_sp = [None] * model.nb
             a_sp[0] = a0
             qdd = [None] * model.nv
@@ -404,126 +445,136 @@ def substep_chain(model, sim_cfg, layout: LimbLayout, comps: Dict,
                     a_sp[b] = S.sv_add(ap, S.sv_scale(Si, qdd[j]))
             return a0, a_sp, qdd
 
-        # ---- inverse apparent inertia per geom (once per call: q drift
-        # within one control step is negligible) --------------------------
-        if lam_w is None:
-            Phi = [None] * model.nb
-            Phi[0] = S.sm_scale(S.inv_psd6(IA[0]), base_split)
-            for d in range(D):
-                for k in range(K):
-                    b = int(layout.body_index[d, k])
-                    par = int(model.parent[b])
-                    Si = (axis_c[d][k], (0.0, 0.0, 0.0))
-                    Phi_x = S.xform_phi_to_child(
-                        E_up[b], p_tree[d][k], Phi[par])
-                    MU = S.sm_vec(Phi_x, U[b])
-                    uMu = S.sv_dot(U[b], MU)
-                    Phi_b = S.sm_add(
-                        Phi_x,
-                        S.sm_scale(S.sm_outer(Si, MU), -dinv[b]))
-                    Phi_b = S.sm_add(
-                        Phi_b,
-                        S.sm_scale(S.sm_outer(MU, Si), -dinv[b]))
-                    Phi_b = S.sm_add(
-                        Phi_b,
-                        S.sm_scale(S.sm_outer(Si, Si),
-                                   dinv[b] + uMu * dinv[b] * dinv[b]))
-                    Phi[b] = Phi_b
-            # world-frame Phi blocks per body (projected per geom with the
-            # dynamic contact-point arm below)
-            phi_w = [None] * model.nb
-            for b in set(int(model.geom_body[g]) for g in range(model.ng)):
-                (A_, B_), (C_, D_) = Phi[b]
-                Rt = S.m3_t(R_b[b])
-                phi_w[b] = (
-                    S.m3_mul(S.m3_mul(R_b[b], A_), Rt),
-                    S.m3_mul(S.m3_mul(R_b[b], B_), Rt),
-                    S.m3_mul(S.m3_mul(R_b[b], D_), Rt))
-            lam_w = [None] * model.ng
+        if apparent:
+            # ---- inverse apparent inertia per geom (once per call: q drift
+            # within one control step is negligible) --------------------------
+            if lam_w is None:
+                Phi = [None] * model.nb
+                Phi[0] = S.sm_scale(S.inv_psd6(IA[0]), base_split)
+                for d in range(D):
+                    for k in range(K):
+                        b = int(layout.body_index[d, k])
+                        par = int(model.parent[b])
+                        Si = (axis_c[d][k], (0.0, 0.0, 0.0))
+                        Phi_x = S.xform_phi_to_child(
+                            E_up[b], p_tree[d][k], Phi[par])
+                        MU = S.sm_vec(Phi_x, U[b])
+                        uMu = S.sv_dot(U[b], MU)
+                        Phi_b = S.sm_add(
+                            Phi_x,
+                            S.sm_scale(S.sm_outer(Si, MU), -dinv[b]))
+                        Phi_b = S.sm_add(
+                            Phi_b,
+                            S.sm_scale(S.sm_outer(MU, Si), -dinv[b]))
+                        Phi_b = S.sm_add(
+                            Phi_b,
+                            S.sm_scale(S.sm_outer(Si, Si),
+                                       dinv[b] + uMu * dinv[b] * dinv[b]))
+                        Phi[b] = Phi_b
+                # world-frame Phi blocks per body (projected per geom with the
+                # dynamic contact-point arm below)
+                phi_w = [None] * model.nb
+                for b in set(int(model.geom_body[g]) for g in range(model.ng)):
+                    (A_, B_), (C_, D_) = Phi[b]
+                    Rt = S.m3_t(R_b[b])
+                    phi_w[b] = (
+                        S.m3_mul(S.m3_mul(R_b[b], A_), Rt),
+                        S.m3_mul(S.m3_mul(R_b[b], B_), Rt),
+                        S.m3_mul(S.m3_mul(R_b[b], D_), Rt))
+                lam_w = [None] * model.ng
 
-        # ---- free dynamics -> per-geom free point acceleration ----------
-        _, a_free, _ = bias_and_accels(None)
-        # per-body active-contact counts for Jacobi mass splitting
-        g_in_c = [None] * model.ng
-        for g in range(model.ng):
-            rad_g = float(model.geom_radius[g])
-            g_in_c[g] = (g_h[g] + rad_g - g_pos[g][2] > 0.0
-                         ).to(g_pos[g][2].dtype)
-        n_active = [None] * model.nb
-        for b in range(model.nb):
-            tot = None
-            for g in geoms_of_body[b]:
-                tot = g_in_c[g] if tot is None else tot + g_in_c[g]
-            n_active[b] = tot
-        g_force = [None] * model.ng
-        g_cp = [None] * model.ng
-        g_tq = [None] * model.ng
-        a_patch = float(getattr(sim_cfg, "torsional_patch_radius", 0.0))
-        for g in range(model.ng):
-            b = int(model.geom_body[g])
-            pg, n = g_pos[g], g_n[g]
-            rad = float(model.geom_radius[g])
-            # contact point on the sphere surface
-            p_c = S.v3_sub(pg, S.v3_scale(n, rad))
-            g_cp[g] = p_c
-            r_w = S.v3_sub(p_c, p_b[b])
-            v_c = S.v3_add(g_vel[g],
-                           S.v3_cross(w_b[b], S.v3_sub(p_c, pg)))
+            # ---- free dynamics -> per-geom free point acceleration ----------
+            _, a_free, _ = bias_and_accels(None)
+            # per-body active-contact counts for Jacobi mass splitting
+            g_in_c = [None] * model.ng
+            for g in range(model.ng):
+                rad_g = float(model.geom_radius[g])
+                g_in_c[g] = (g_h[g] + rad_g - g_pos[g][2] > 0.0
+                             ).to(g_pos[g][2].dtype)
+            n_active = [None] * model.nb
+            for b in range(model.nb):
+                tot = None
+                for g in geoms_of_body[b]:
+                    tot = g_in_c[g] if tot is None else tot + g_in_c[g]
+                n_active[b] = tot
+            g_force = [None] * model.ng
+            g_cp = [None] * model.ng
+            g_tq = [None] * model.ng
+            a_patch = float(getattr(sim_cfg, "torsional_patch_radius", 0.0))
+            for g in range(model.ng):
+                b = int(model.geom_body[g])
+                pg, n = g_pos[g], g_n[g]
+                rad = float(model.geom_radius[g])
+                # contact point on the sphere surface
+                p_c = S.v3_sub(pg, S.v3_scale(n, rad))
+                g_cp[g] = p_c
+                r_w = S.v3_sub(p_c, p_b[b])
+                v_c = S.v3_add(g_vel[g],
+                               S.v3_cross(w_b[b], S.v3_sub(p_c, pg)))
 
-            if lam_w[g] is None:
-                A_w, B_w, D_w = phi_w[b]
-                Sm = S.m3_scale(S.m3_skew(r_w), -1.0)
-                Smt = S.m3_t(Sm)
-                SmB = S.m3_mul(Sm, B_w)
-                lam_w[g] = S.m3_add(
-                    S.m3_add(S.m3_mul(S.m3_mul(Sm, A_w), Smt),
-                             S.m3_add(SmB, S.m3_t(SmB))), D_w)
+                if lam_w[g] is None:
+                    A_w, B_w, D_w = phi_w[b]
+                    Sm = S.m3_scale(S.m3_skew(r_w), -1.0)
+                    Smt = S.m3_t(Sm)
+                    SmB = S.m3_mul(Sm, B_w)
+                    lam_w[g] = S.m3_add(
+                        S.m3_add(S.m3_mul(S.m3_mul(Sm, A_w), Smt),
+                                 S.m3_add(SmB, S.m3_t(SmB))), D_w)
 
-            a_ang, a_lin = a_free[b]
-            a_lin_true = S.v3_add(a_lin, S.m3_tvec(R_b[b], (
-                base_pos[0] * 0.0, base_pos[0] * 0.0,
-                base_pos[0] * 0.0 + gz)))
-            wdot_w = S.m3_vec(R_b[b], a_ang)
-            a_org_w = S.v3_add(S.m3_vec(R_b[b], a_lin_true),
-                               S.v3_cross(w_b[b], v_b[b]))
-            a_pt = S.v3_add(
-                S.v3_add(a_org_w, S.v3_cross(wdot_w, r_w)),
-                S.v3_cross(w_b[b], S.v3_cross(w_b[b], r_w)))
+                a_ang, a_lin = a_free[b]
+                a_lin_true = S.v3_add(a_lin, S.m3_tvec(R_b[b], (
+                    base_pos[0] * 0.0, base_pos[0] * 0.0,
+                    base_pos[0] * 0.0 + gz)))
+                wdot_w = S.m3_vec(R_b[b], a_ang)
+                a_org_w = S.v3_add(S.m3_vec(R_b[b], a_lin_true),
+                                   S.v3_cross(w_b[b], v_b[b]))
+                a_pt = S.v3_add(
+                    S.v3_add(a_org_w, S.v3_cross(wdot_w, r_w)),
+                    S.v3_cross(w_b[b], S.v3_cross(w_b[b], r_w)))
 
-            # TGS-style velocity constraint solve against lam_w[g]
-            depth = S.maximum(g_h[g] + rad - pg[2], 0.0)
-            in_c = g_in_c[g]
-            v_pred = S.v3_add(v_c, S.v3_scale(a_pt, dt))
-            v_n_now = S.v3_dot(v_c, n)
-            bias = S.minimum(sim_cfg.erp / dt * depth,
-                             sim_cfg.max_depenetration_velocity)
-            bounce = torch.where(
-                v_n_now < -sim_cfg.bounce_threshold_velocity,
-                -restitution * v_n_now, 0.0)
-            v_tgt_n = S.maximum(bias, bounce)
-            dv = S.v3_sub(S.v3_scale(n, v_tgt_n), v_pred)
-            split = S.maximum(n_active[b], 1.0)
-            lam_g = S.m3_scale(lam_w[g], split)
-            f = S.m3_solve(lam_g, S.v3_scale(dv, 1.0 / dt))
-            f_n = S.v3_dot(f, n)
-            f_t = S.v3_sub(f, S.v3_scale(n, f_n))
-            f_n = S.maximum(f_n, 0.0) * in_c
-            ft_norm = S.v3_norm(f_t, 1e-18)
-            scale = S.minimum(1.0, mu * f_n / (ft_norm + 1e-9)) * in_c
-            g_force[g] = S.v3_add(S.v3_scale(n, f_n),
-                                  S.v3_scale(f_t, scale))
+                # TGS-style velocity constraint solve against lam_w[g]
+                depth = S.maximum(g_h[g] + rad - pg[2], 0.0)
+                in_c = g_in_c[g]
+                v_pred = S.v3_add(v_c, S.v3_scale(a_pt, dt))
+                v_n_now = S.v3_dot(v_c, n)
+                bias = S.minimum(sim_cfg.erp / dt * depth,
+                                 sim_cfg.max_depenetration_velocity)
+                bounce = torch.where(
+                    v_n_now < -sim_cfg.bounce_threshold_velocity,
+                    -restitution * v_n_now, 0.0)
+                v_tgt_n = S.maximum(bias, bounce)
+                dv = S.v3_sub(S.v3_scale(n, v_tgt_n), v_pred)
+                split = S.maximum(n_active[b], 1.0)
+                lam_g = S.m3_scale(lam_w[g], split)
+                f = S.m3_solve(lam_g, S.v3_scale(dv, 1.0 / dt))
+                f_n = S.v3_dot(f, n)
+                f_t = S.v3_sub(f, S.v3_scale(n, f_n))
+                f_n = S.maximum(f_n, 0.0) * in_c
+                ft_norm = S.v3_norm(f_t, 1e-18)
+                scale = S.minimum(1.0, mu * f_n / (ft_norm + 1e-9)) * in_c
+                g_force[g] = S.v3_add(S.v3_scale(n, f_n),
+                                      S.v3_scale(f_t, scale))
 
-            # torsional friction: spin-stiction about the normal against
-            # the apparent angular inertia, clamped to the torsion cone
-            # mu * f_n * patch_radius
-            if a_patch > 0.0:
-                A_w = phi_w[b][0]
-                w_n = S.v3_dot(w_b[b], n)
-                r_ang = S.maximum(
-                    S.v3_dot(n, S.m3_vec(A_w, n)) * split, 1e-6)
-                tau_max = mu * f_n * a_patch
-                tau_n = S.clip(-w_n / (dt * r_ang), -tau_max, tau_max)
-                g_tq[g] = S.v3_scale(n, tau_n)
+                # torsional friction: spin-stiction about the normal against
+                # the apparent angular inertia, clamped to the torsion cone
+                # mu * f_n * patch_radius
+                if a_patch > 0.0:
+                    A_w = phi_w[b][0]
+                    w_n = S.v3_dot(w_b[b], n)
+                    r_ang = S.maximum(
+                        S.v3_dot(n, S.m3_vec(A_w, n)) * split, 1e-6)
+                    tau_max = mu * f_n * a_patch
+                    tau_n = S.clip(-w_n / (dt * r_ang), -tau_max, tau_max)
+                    g_tq[g] = S.v3_scale(n, tau_n)
+
+        else:
+            # the penalty forces act at the sphere centers, with no torsion
+            g_cp, g_tq = g_pos, [None] * model.ng
+            g_force = [legacy_contact_force(
+                g_pos[g], g_vel[g], g_h[g], g_n[g],
+                float(model.geom_radius[g]),
+                float(model.mass[int(model.geom_body[g])]), zeta, mu,
+                sim_cfg, dt) for g in range(model.ng)]
 
         f_ext = gather_f_ext(g_force, g_cp, g_tq)
 
@@ -561,13 +612,17 @@ def substep_chain(model, sim_cfg, layout: LimbLayout, comps: Dict,
         a_true0 = (a0[0], S.v3_add(a0[1], g_b))
 
         # ---- integrate (semi-implicit, SoA) -----------------------------
-        wdot_w = S.m3_vec(R0, a_true0[0])
-        acc_w = S.v3_add(S.m3_vec(R0, a_true0[1]),
-                         S.v3_cross(base_w, base_v))
-        base_w = S.v3_add(base_w, S.v3_scale(wdot_w, dt))
-        base_v = S.v3_add(base_v, S.v3_scale(acc_w, dt))
-        base_pos = S.v3_add(base_pos, S.v3_scale(base_v, dt))
-        base_quat = S.quat_integrate(base_quat, base_w, dt)
+        if fixed_base:
+            base_w = S.v3_zeros_like(base_pos[0])
+            base_v = S.v3_zeros_like(base_pos[0])
+        else:
+            wdot_w = S.m3_vec(R0, a_true0[0])
+            acc_w = S.v3_add(S.m3_vec(R0, a_true0[1]),
+                             S.v3_cross(base_w, base_v))
+            base_w = S.v3_add(base_w, S.v3_scale(wdot_w, dt))
+            base_v = S.v3_add(base_v, S.v3_scale(acc_w, dt))
+            base_pos = S.v3_add(base_pos, S.v3_scale(base_v, dt))
+            base_quat = S.quat_integrate(base_quat, base_w, dt)
         for j in range(model.nv):
             qd[j] = S.clip(qd[j] + dt * qdd[j], -vel_lim[j], vel_lim[j])
             q[j] = q[j] + dt * qd[j]
@@ -623,7 +678,8 @@ def physics_step_soa(
     the env's hoisted per-step window (see :func:`sample_geom_terrain`);
     ``world_boxes`` are placed at each env's ``env_origin`` and collide
     with the spheres at ``world_friction``."""
-    layout = check_supported(model, sim_cfg, fixed_base, terrain, world_boxes)
+    layout = check_supported(model, sim_cfg, terrain, world_boxes,
+                             fixed_base)
     base_pos = _v3(state.base_pos)
     base_quat = tuple(state.base_quat[:, i] for i in range(4))
     q = [state.q[:, j] for j in range(model.nv)]
@@ -651,7 +707,7 @@ def physics_step_soa(
     if world_boxes is not None:
         comps["origin"] = _v3(env_origin)
     out = substep_chain(model, sim_cfg, layout, comps, world_boxes,
-                        world_friction)
+                        world_friction, fixed_base)
 
     new_state = SimState(
         base_pos=_stack_v3(out["base_pos"]),

@@ -149,6 +149,68 @@ def test_host_kernel_world_matches_plain(host_lib, models, robot, kind,
                                                      ref.geom_pos, origins))
 
 
+@pytest.mark.parametrize("robot,kind,terrain,fixed,world", [
+    ("hopper", "hopper", False, False, False),
+    ("hopper", "hopper", False, True, False),
+    ("hopper", "hopper", True, False, False),
+    ("hopper", "hopper", True, True, False),
+    ("hopper", "hopper", False, True, True),
+    ("go1", "ground", False, False, False),
+    ("mc", "flight", True, False, False),
+    ("mc", "ground", True, False, False),
+    ("mc", "flight", True, True, False),
+    ("mc", "ground", True, True, False),
+])
+def test_host_kernel_legacy_and_fixed_base_match_plain(
+        host_lib, models, robot, kind, terrain, fixed, world):
+    """The legacy-contact variant (LEG), floating or with a fixed base
+    (FIX): the hopper on the plane, on the step grid, and with a fixed
+    base in the walls of tests/test_pallas_physics.py's corridor; Go1
+    grounded on the plane; Mini Cheetah in flight and grounded over the
+    generated grid. Implicit PD on."""
+    model = models[robot]
+    n = 200 if robot == "hopper" else 64
+    state, params, tau, imp = physics_inputs(model, n, 13, kind)
+    grid = None
+    if terrain:
+        grid = step_grid()[1] if robot == "hopper" else generated_grid()[1]
+        if robot != "hopper":
+            state = on_terrain(state, grid, 14)
+    state, params, tau, imp = torch_inputs(state, params, tau, imp)
+    sim = SimCfg(contact_model="legacy")
+    kw = dict(terrain=grid, implicit_damp=imp)
+    if world:
+        kw.update(world_boxes=default_corridor(1.2, 0.5, wall_height=1.0),
+                  env_origin=torch.zeros(n, 3))
+    ref = physics_step_soa(model, sim, state, tau, params, fixed_base=fixed,
+                           **kw)
+    out = CP.physics_step_host(host_lib, model, sim, state, tau, params,
+                               fixed_base=fixed, **kw)
+    if kind != "flight":
+        assert ref.contact_report.abs().max() > 1.0
+    if fixed:
+        assert torch.equal(out.state.base_pos, state.base_pos)
+        assert (out.state.base_lin_vel == 0).all()
+    if world:
+        assert_step_close_walls(ref, out, wall_depth(
+            model, kw["world_boxes"], ref.geom_pos, kw["env_origin"]))
+    else:
+        assert_step_close(ref, out, kind)
+
+
+def test_legacy_constants_in_the_table(models):
+    """The header's legacy constants: stiffness, damping, stiffness x
+    substep dt (formed in float64) and the friction velocity epsilon."""
+    model = models["mc"]
+    sim = SimCfg()
+    layout = CP.check_supported(model, sim)
+    t = CP.pack_constants(model, sim, layout)
+    dt = sim.dt / sim.num_substeps
+    np.testing.assert_array_equal(t[14:18], np.float32(
+        [sim.contact_stiffness, sim.contact_damping,
+         sim.contact_stiffness * dt, sim.friction_vel_eps]))
+
+
 def test_world_table_and_channels(models):
     """The world block of the constant table (count, stiffness, c_n,
     friction, velocity epsilon, then center and half extents per box) and
@@ -287,3 +349,34 @@ def test_cuda_launch_refuses_variants_not_built(models, robot, with_imp,
         CP.KERNEL.launch_packed(x, y, cst, layout, with_imp,
                                 has_world=with_world)
     assert (CP.KERNEL.launches, CP.KERNEL.world_launches) == before
+
+
+@pytest.mark.parametrize("legacy,fixed,terrain,world", [
+    (True, False, False, False),
+    (False, True, True, False),
+    (True, True, False, False),
+    (True, False, True, True),
+])
+def test_cuda_launch_refuses_legacy_and_fixed_base_not_built(
+        models, legacy, fixed, terrain, world):
+    """The card builds the legacy model on terrain and the legacy model
+    with a fixed base on terrain, without world boxes; any other
+    combination (here: legacy on the plane, a fixed base with the apparent
+    model, both on the plane, legacy with the walls) is refused before a
+    build or a launch, and nothing is counted."""
+    model = models["mc"]
+    state, params, tau, imp = torch_inputs(*physics_inputs(model, 4, 0,
+                                                           "ground"))
+    layout = CP.check_supported(model, SimCfg())
+    x = torch.empty((10, 4))
+    y = torch.empty((CP.out_channels(model), 4))
+    cst = torch.from_numpy(CP.pack_constants(model, SimCfg(), layout))
+    k = CP.KERNEL
+    before = (k.launches, k.legacy_launches, k.fixed_base_launches)
+    # a fixed base with the apparent model is refused as a bad argument
+    # (soa_physics.check_supported), the rest as not built
+    with pytest.raises(ValueError if fixed and not legacy
+                       else NotImplementedError):
+        k.launch_packed(x, y, cst, layout, True, has_terrain=terrain,
+                        has_world=world, legacy=legacy, fixed_base=fixed)
+    assert (k.launches, k.legacy_launches, k.fixed_base_launches) == before

@@ -148,16 +148,6 @@ def test_cpu_dispatch_runs_plain_version(hopper_urdf):
     assert torch.equal(a.contact_report, b.contact_report)
 
 
-@pytest.mark.parametrize("variant", ["fixed_base", "legacy"])
-def test_unported_variants_raise(hopper_urdf, variant):
-    tm = load_urdf(hopper_urdf)
-    ts, tp, tt, ti = torch_inputs(*physics_inputs(tm, 4, 4, "hopper"))
-    sim = SimCfg(contact_model="legacy") if variant == "legacy" else SimCfg()
-    kw = {"fixed_base": True} if variant == "fixed_base" else {}
-    with pytest.raises(NotImplementedError):
-        physics_step_cuda(tm, sim, ts, tt, tp, implicit_damp=ti, **kw)
-
-
 @pytest.mark.parametrize("reference", ["soa", "pallas"])
 def test_hopper_on_step_grid_matches_jax(hopper_urdf, reference):
     """Terrain input on the step grid of tests/test_pallas_physics.py
