@@ -12,14 +12,17 @@ raises and the script exits non-zero.
              runs: the plane, terrain, terrain with world boxes, terrain
              with the legacy contact model, and terrain with the legacy
              contact model and a fixed base) from csrc/; ptxas's register,
-             spill and stack lines.
+             spill and stack lines; per variant, the CUDA runtime's shared
+             bytes per env and per block, resident warps per SM, registers
+             and local bytes per thread.
 3. kernel:   the plane variant against its plain PyTorch version on Go1 at
              4096 envs, on states made from a numpy seed: torque-free
              flight at rtol/atol 2e-5 on state and 1e-5 on geom positions;
              grounded states with random torques: >= 99% of entries of
              every state field and of the non-zero contact forces within
-             atol + 1e-3 |ref|, geom positions at 1e-5; kernel and plain
-             times by CUDA events.
+             atol + 1e-3 |ref|, geom positions at 1e-5; two launches on
+             one input bitwise equal; kernel times by CUDA events at the
+             main path's width and at 1024 envs, and the plain time.
 4. terrain:  the terrain variant, the same way, on Mini Cheetah at 4000
              envs spread over the default TerrainCfg mix (slopes, stairs,
              obstacles; the flagship's own grid is flat), looked up through
@@ -99,7 +102,11 @@ MC_WEIGHTS = os.path.join("runs", "r5_flagship", "checkpoints",
 MC_STATE = os.path.join("runs", "r5_flagship", "checkpoints",
                         "train_state_last.pkl")
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
-H100_FP32_OPS_PER_S = 67e12     # fp32 outside the tensor cores
+# FP32 instructions a second outside the tensor cores: 132 SMs x 128 lanes
+# x 1.98 GHz. count_ops_per_env counts a multiply and an add as one
+# operation each, and the kernel is built with --fmad=false, so each is one
+# instruction; the data sheet's 67 TFLOP/s counts a fused multiply-add as two.
+H100_FP32_OPS_PER_S = 33.5e12
 
 
 def say(phase: str, msg: str) -> None:
@@ -130,14 +137,42 @@ def phase_device():
 
 
 def phase_build():
-    from rapid_locomotion_rl_tpu_torch.ops.cuda_physics import KERNEL
+    """The library from csrc/, ptxas's lines for each instance, and what
+    the CUDA runtime reports for each variant at its main path's table:
+    shared bytes per env and per block, resident warps per SM, registers
+    and local (stack) bytes per thread."""
+    from rapid_locomotion_rl_tpu_torch.config import config_mini_cheetah
+    from rapid_locomotion_rl_tpu_torch.ops import cuda_physics as CP
+    from rapid_locomotion_rl_tpu_torch.ops.world import default_corridor
     t = time.time()
-    KERNEL.load()
-    say("build", f"{time.time() - t:.2f}s -> {KERNEL.library_path}")
-    for line in KERNEL.build_log.splitlines():
+    CP.KERNEL.load()
+    say("build", f"{time.time() - t:.2f}s -> {CP.KERNEL.library_path}")
+    for line in CP.KERNEL.build_log.splitlines():
         if any(w in line for w in ("registers", "spill", "smem", "stack",
                                    "Compiling entry")):
             say("build", "ptxas " + line.strip())
+    go1_cfg, go1 = go1_model()
+    mc_cfg, mc = robot(config_mini_cheetah)
+    w = mc_cfg.world
+    boxes = default_corridor(w.length, w.width, w.wall_height,
+                             w.wall_thickness)
+    for name, model, cfg, bx, kw in (
+            ("plane", go1, go1_cfg, None, {}),
+            ("terrain", mc, mc_cfg, None, dict(has_terrain=True)),
+            ("world", mc, mc_cfg, boxes, dict(has_terrain=True,
+                                              has_world=True)),
+            ("legacy", mc, mc_cfg, None, dict(has_terrain=True, legacy=True)),
+            ("fixed_base", mc, mc_cfg, None, dict(
+                has_terrain=True, legacy=True, fixed_base=True))):
+        layout = CP.check_supported(model, cfg.sim)
+        n_cst = CP.pack_constants(model, cfg.sim, layout, bx).size
+        o = CP.KERNEL.occupancy(n_cst, **kw)
+        say("build", f"{name}: table {n_cst * 4} B, scratch "
+            f"{o['scratch_bytes_per_env']} B/env, "
+            f"{o['smem_bytes_per_block']} B shared/block of "
+            f"{o['envs_per_block']} envs, {o['blocks_per_sm']} blocks = "
+            f"{o['warps_per_sm']} warps/SM, {o['registers']} registers, "
+            f"{o['local_bytes']} B local/thread")
 
 
 def robot(config):
@@ -290,8 +325,9 @@ def check_pinned(phase, state, out):
 def hold_kernel(phase, model, sim, make_inputs, n, terrain=None,
                 window=None, boxes=None, origins=None, fixed_base=False):
     """The kernel against its plain version: torque-free flight strictly,
-    grounded states with random torques in bulk; then its time per launch,
-    the plain version's time per call, and the bound, at these shapes.
+    grounded states with random torques in bulk; two launches on one input
+    bitwise equal; then its time per launch (also at 1024 envs), the plain
+    version's time per call, and the bound, at these shapes.
     ``make_inputs(seed, airborne)`` gives (state, tau, params, imp);
     ``window(state)`` the terrain window of the env's step. With world
     ``boxes`` at ``origins`` [N, 3], the flight state flies over the walls
@@ -384,9 +420,27 @@ def hold_kernel(phase, model, sim, make_inputs, n, terrain=None,
     y = torch.empty((CP.out_channels(model), n), device=state.q.device)
     has_t, has_w = terrain is not None, boxes is not None
     legacy = CP.legacy_contact(sim)
-    result["ms"] = time_ms(
-        lambda: CP.KERNEL.launch_packed(x, y, cst, layout, True, has_t,
-                                        has_w, legacy, fixed_base), 50)
+
+    def launch(xx, yy):
+        CP.KERNEL.launch_packed(xx, yy, cst, layout, True, has_t, has_w,
+                                legacy, fixed_base)
+    result["ms"] = time_ms(lambda: launch(x, y), 50)
+    # the same input again: the same bits (no atomics, every sum in a fixed
+    # order; a race between lanes shows here only where two launches
+    # resolve it differently)
+    y2 = torch.empty_like(y)
+    launch(x, y2)
+    torch.cuda.synchronize()
+    if not torch.equal(y, y2):
+        raise AssertionError(f"two launches on one input differ in "
+                             f"{int((y != y2).sum())} entries")
+    # at the HLP's width as well: how the time scales with the envs
+    if n > N_HLP:
+        x1 = x[:, :N_HLP].contiguous()
+        y1 = torch.empty((y.shape[0], N_HLP), device=y.device)
+        result["ms_1024"] = time_ms(lambda: launch(x1, y1), 50)
+    else:
+        result["ms_1024"] = result["ms"]
     result["plain_ms"] = time_ms(
         lambda: physics_step_soa(model, sim, state, tau, params,
                                  terrain=terrain, implicit_damp=imp,
@@ -402,8 +456,9 @@ def hold_kernel(phase, model, sim, make_inputs, n, terrain=None,
         bound_ms=max(t_bytes, t_ops),
         bound_by="bytes" if t_bytes >= t_ops else "operations",
         ops_per_env=ops, bytes=nbytes, c_in=x.shape[0], c_out=y.shape[0])
-    say(phase, f"times N={n}: kernel {result['ms']:.4f} ms/launch, "
-        f"plain {result['plain_ms']:.1f} ms/call, bound "
+    say(phase, f"two launches on one input: bitwise equal; times N={n}: "
+        f"kernel {result['ms']:.4f} ms/launch ({result['ms_1024']:.4f} at "
+        f"N={min(n, N_HLP)}), plain {result['plain_ms']:.1f} ms/call, bound "
         f"{result['bound_ms']:.4f} ms by {result['bound_by']} "
         f"({ops:.0f} ops/env, {nbytes} bytes, C_in {x.shape[0]}, "
         f"C_out {y.shape[0]})")
@@ -1187,6 +1242,9 @@ def main() -> int:
     hl = phase_hlp(dev)
     hw = phase_hlp_world(dev)
     say("result", "all phases passed")
+    say("result", "K1 ms/launch at the main path's width | at 1024 envs: "
+        + ", ".join(f"{v} {k['ms']:.4f} | {k['ms_1024']:.4f}" for v, k in
+                    zip(VARIANTS, (k1, kt, kw, kl, kf))))
     kernels = [{
         "name": name,
         "route": "cuda",

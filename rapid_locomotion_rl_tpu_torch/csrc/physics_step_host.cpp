@@ -1,14 +1,27 @@
 // CPU build of the physics step's per-env body (csrc/substep_chain.cuh): a
-// loop over envs, in every variant of the compile-time switches (a fixed
-// base with the legacy contact model only, as the chain takes it). It lets the
-// kernel's arithmetic be tested on a machine without a GPU (g++ -O2 -shared
-// -fPIC -ffp-contract=off).
+// loop over envs, each env's team phases run lane after lane, in every
+// variant of the compile-time switches (a fixed base with the legacy contact
+// model only, as the chain takes it). It lets the kernel's arithmetic be
+// tested on a machine without a GPU (g++ -O2 -shared -fPIC
+// -ffp-contract=off); with -DRL_HOST_LANES_REVERSED each phase runs its
+// lanes last to first, which changes the result only where a phase has a
+// race between its lanes.
+#include <string.h>
+
 #include "substep_chain.cuh"
 
 template <int D, int K, bool IMP, bool TER, bool WLD, bool LEG, bool FIX>
 static void run_all(const float* x, float* y, const float* cst, int n) {
-  for (int i = 0; i < n; ++i)
-    rl::Chain<D, K, IMP, TER, WLD, LEG, FIX>::run(x, y, cst, n, i);
+  using C = rl::Chain<D, K, IMP, TER, WLD, LEG, FIX>;
+  typename C::GeomLists gl;
+  memset(&gl, 0x7f, sizeof(gl));  // an unbuilt entry would walk out of range
+  C::build_lists(cst, gl);
+  typename C::Scratch s;
+  for (int i = 0; i < n; ++i) {
+    // NaN in every scratch word: a read before a write shows in the output
+    memset(&s, 0xff, sizeof(s));
+    C::run(x, y, cst, n, i, gl, s);
+  }
 }
 
 template <int D, int K, bool IMP, bool TER, bool WLD, bool LEG>

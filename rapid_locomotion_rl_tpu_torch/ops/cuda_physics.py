@@ -2,9 +2,10 @@
 
 :func:`physics_step_cuda` has the signature and :class:`StepOutput` of the
 plain :func:`.soa_physics.physics_step_soa`. For tensors on the card it
-launches the kernel of ``csrc/physics_step.cu`` (one thread per env, each
-running the whole control-step call of ``csrc/substep_chain.cuh``); for
-tensors on the CPU it runs the plain version. It replaces the JAX package's
+launches the kernel of ``csrc/physics_step.cu`` (one warp per env, its lanes
+splitting the whole control-step call of ``csrc/substep_chain.cuh`` by limb
+chain, geom and body, in the plain version's order of sums); for tensors on
+the CPU it runs the plain version. It replaces the JAX package's
 Pallas kernel ``ops/pallas_physics.py::_kernel``.
 
 The kernel library is built at first use by ``nvcc`` into
@@ -19,8 +20,8 @@ contact model and a fixed base (``AssetCfg.fix_base_link``; a fixed base
 under the apparent model is refused on every device by
 :func:`.soa_physics.check_supported`). The same per-env body also builds
 with ``g++`` into a CPU library, in every variant
-(:func:`build_host_library`), which the CPU tests hold against the plain
-version.
+(:func:`build_host_library`, each phase's lanes run one after another),
+which the CPU tests hold against the plain version.
 
 Layout: the wrapper packs the inputs into one [C_in, N] float32 array,
 channel-major (state 13+2nv, tau nv, payload 1, CoM shift 3, restitution 1,
@@ -106,11 +107,15 @@ def _compile(cmd, out_path):
     return proc.stdout + proc.stderr
 
 
-def build_cuda_library():
+def build_cuda_library(phase_clocks: bool = False):
     """Build (or find) the CUDA library; returns (path, compiler log). The
     log holds ptxas's register, spill and shared-memory lines; it is empty
-    when the library was already built from these sources."""
-    out = os.path.join(ROOT_DIR, "build", "torch_kernels", sources_hash(),
+    when the library was already built from these sources. With
+    ``phase_clocks`` the timing build (``-DRL_PHASE_CLOCKS``, into a
+    directory of its own): the first warp of block 0 notes ``clock64()`` at
+    its start and after every team phase."""
+    out = os.path.join(ROOT_DIR, "build", "torch_kernels", sources_hash()
+                       + ("-clocks" if phase_clocks else ""),
                        "libphysics_step.so")
     if os.path.exists(out):
         return out, ""
@@ -118,18 +123,26 @@ def build_cuda_library():
     if not os.path.exists(nvcc):
         raise RuntimeError("nvcc not found: the CUDA toolkit is required to "
                            "build the physics kernel")
-    log = _compile([nvcc, *NVCC_FLAGS, "physics_step.cu"], out)
+    log = _compile([nvcc, *NVCC_FLAGS,
+                    *(["-DRL_PHASE_CLOCKS"] if phase_clocks else []),
+                    "physics_step.cu"], out)
     return out, log
 
 
-def build_host_library(build_dir: str) -> str:
-    """Build the CPU library of the kernel body with g++ into build_dir."""
-    out = os.path.join(build_dir, f"libphysics_step_host_{sources_hash()}.so")
+def build_host_library(build_dir: str, lanes_reversed: bool = False) -> str:
+    """Build the CPU library of the kernel body with g++ into build_dir;
+    with ``lanes_reversed`` each phase runs its lanes last to first (the
+    bits change only where a phase has a race between lanes)."""
+    rev = "_reversed" if lanes_reversed else ""
+    out = os.path.join(build_dir,
+                       f"libphysics_step_host{rev}_{sources_hash()}.so")
     if not os.path.exists(out):
         gxx = shutil.which("g++")
         if gxx is None:
             raise RuntimeError("g++ not found")
-        _compile([gxx, *HOST_FLAGS, "physics_step_host.cpp"], out)
+        _compile([gxx, *HOST_FLAGS,
+                  *(["-DRL_HOST_LANES_REVERSED"] if lanes_reversed else []),
+                  "physics_step_host.cpp"], out)
     return out
 
 
@@ -317,7 +330,8 @@ class PhysicsStepKernel:
     fixed base (a launch counts in each that applies: a fixed-base launch
     is also a legacy and a terrain launch)."""
 
-    def __init__(self):
+    def __init__(self, phase_clocks: bool = False):
+        self.phase_clocks = phase_clocks   # the timing build
         self.launches = 0
         self.terrain_launches = 0
         self.world_launches = 0
@@ -329,19 +343,58 @@ class PhysicsStepKernel:
         self._tables = {}
 
     def load(self):
-        """Build the library if needed and bind its C entry point."""
+        """Build the library if needed and bind its C entry points."""
         if self._fn is None:
-            path, log = build_cuda_library()
+            path, log = build_cuda_library(self.phase_clocks)
             lib = ctypes.CDLL(path)
             fn = lib.rl_physics_step
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                           *[ctypes.c_int] * 9, ctypes.c_void_p]
             fn.restype = ctypes.c_int
+            occ = lib.rl_physics_step_occupancy
+            occ.argtypes = [*[ctypes.c_int] * 8, ctypes.c_void_p]
+            occ.restype = ctypes.c_int
+            if self.phase_clocks:
+                lib.rl_phase_clocks.argtypes = [ctypes.c_void_p]
+                lib.rl_phase_clocks.restype = ctypes.c_int
             self._lib, self._fn = lib, fn
             self.library_path, self.build_log = path, log
         return self._fn
+
+    def occupancy(self, cst_len: int, has_terrain: bool = False,
+                  has_world: bool = False, legacy: bool = False,
+                  fixed_base: bool = False) -> dict:
+        """What the CUDA runtime reports for a variant's instance with a
+        table of ``cst_len`` floats: shared bytes per env and per block,
+        envs per block, resident blocks and warps per SM, registers and
+        local (stack) bytes per thread."""
+        self.load()
+        out = (ctypes.c_int * 6)()
+        err = self._lib.rl_physics_step_occupancy(
+            cst_len, *CUDA_LAYOUT, 1, int(has_terrain), int(has_world),
+            int(legacy), int(fixed_base), out)
+        if err != 0:
+            raise RuntimeError(f"occupancy query failed: cudaError {err}")
+        keys = ("scratch_bytes_per_env", "smem_bytes_per_block",
+                "envs_per_block", "blocks_per_sm", "registers",
+                "local_bytes")
+        occ = dict(zip(keys, out))
+        occ["warps_per_sm"] = occ["blocks_per_sm"] * occ["envs_per_block"]
+        return occ
+
+    def read_phase_clocks(self) -> list:
+        """The timing build's clocks noted since the last read (block 0's
+        first warp: its start, then the end of each team phase; at most
+        512), after which the count starts again."""
+        if not self.phase_clocks:
+            raise RuntimeError("phase clocks need PhysicsStepKernel("
+                               "phase_clocks=True)")
+        self.load()
+        buf = (ctypes.c_longlong * 512)()
+        n = self._lib.rl_phase_clocks(buf)
+        if n < 0:
+            raise RuntimeError("reading the phase clocks failed")
+        return list(buf[:n])
 
     def table(self, model, sim_cfg, layout, device,
               world_boxes: Optional[WorldBoxes] = None,
@@ -396,9 +449,10 @@ class PhysicsStepKernel:
         fn = self.load()
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(y.data_ptr()),
-                 ctypes.c_void_p(cst.data_ptr()), x.shape[1], layout.D,
-                 layout.K, int(has_imp), int(has_terrain), int(has_world),
-                 int(legacy), int(fixed_base), ctypes.c_void_p(stream))
+                 ctypes.c_void_p(cst.data_ptr()), cst.numel(), x.shape[1],
+                 layout.D, layout.K, int(has_imp), int(has_terrain),
+                 int(has_world), int(legacy), int(fixed_base),
+                 ctypes.c_void_p(stream))
         if err != 0:
             raise RuntimeError(f"physics kernel launch failed: cudaError {err}")
         self.launches += 1

@@ -7,7 +7,9 @@ tolerances of tests/test_pallas_physics.py (2e-5 on state, 2e-4/2e-3 on
 contact reports, 1e-5 on geom positions); grounded Go1 states by the bulk
 rule of tests/test_soa_physics.py. Every variant of the host build is held
 to the plain version: plane or terrain, with or without the implicit-PD
-input, with or without the world boxes of the HLP corridor."""
+input, with or without the world boxes of the HLP corridor. The body runs
+as a team of lanes in phases; a second build runs each phase's lanes in
+reverse and must give the same bits (a race between lanes would not)."""
 
 import re
 import shutil
@@ -32,6 +34,16 @@ def host_lib(tmp_path_factory):
     if shutil.which("g++") is None:
         pytest.skip("no g++ on this machine to build the kernel body")
     path = CP.build_host_library(str(tmp_path_factory.mktemp("hostlib")))
+    return CP.load_host_library(path)
+
+
+@pytest.fixture(scope="module")
+def host_lib_reversed(tmp_path_factory):
+    """The same body built with each team phase's lanes run last to first."""
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ on this machine to build the kernel body")
+    path = CP.build_host_library(str(tmp_path_factory.mktemp("hostlib_rev")),
+                                 lanes_reversed=True)
     return CP.load_host_library(path)
 
 
@@ -196,6 +208,65 @@ def test_host_kernel_legacy_and_fixed_base_match_plain(
             model, kw["world_boxes"], ref.geom_pos, kw["env_origin"]))
     else:
         assert_step_close(ref, out, kind)
+
+
+LANE_VARIANTS = {  # terrain, world boxes, legacy contact, fixed base
+    "plane": (False, False, False, False),
+    "terrain": (True, False, False, False),
+    "world": (True, True, False, False),
+    "legacy": (True, False, True, False),
+    "fixed_base": (True, False, True, True),
+}
+
+
+@pytest.mark.parametrize("variant", list(LANE_VARIANTS))
+@pytest.mark.parametrize("robot,kind", [
+    ("hopper", "hopper"), ("go1", "flight"), ("go1", "ground"),
+    ("mc", "flight"), ("mc", "ground")])
+def test_host_kernel_lane_order_is_bitwise(host_lib, host_lib_reversed,
+                                           models, robot, kind, variant):
+    """The team body gives the same bits with each phase's lanes run first
+    to last and last to first, in every variant the card builds (implicit
+    PD on): a phase in which one lane reads what another lane of it writes
+    would be a data race on the card, and shows here as a difference. The
+    hopper's 1x2 layout on the step grid and in the small corridor; Go1
+    and Mini Cheetah over the generated grid and in the default corridor,
+    flight inside the walls' height."""
+    model = models[robot]
+    n = 32 if robot == "hopper" else 16
+    terrain, world, legacy, fixed = LANE_VARIANTS[variant]
+    state, params, tau, imp = physics_inputs(model, n, 15, kind)
+    grid, boxes, origins = None, None, None
+    if world:
+        if robot == "hopper":
+            boxes = default_corridor(1.2, 0.5, wall_height=1.0)
+            origins = np.zeros((n, 3), np.float32)
+        else:
+            boxes = default_corridor()
+            state, origins = near_walls(state, 16, 0.75 if kind == "flight"
+                                        else None)
+    if terrain:
+        grid = step_grid()[1] if robot == "hopper" else generated_grid()[1]
+        if robot != "hopper":
+            rel = state["base_pos"][:, :2] - (0 if origins is None
+                                              else origins[:, :2])
+            state = on_terrain(state, grid, 17)
+            if origins is not None:
+                origins[:, :2] = state["base_pos"][:, :2] - rel
+    state, params, tau, imp = torch_inputs(state, params, tau, imp)
+    sim = SimCfg(contact_model="legacy" if legacy else "apparent")
+    kw = dict(implicit_damp=imp, terrain=grid, world_boxes=boxes,
+              env_origin=None if origins is None else torch.tensor(origins),
+              fixed_base=fixed)
+    fwd = CP.physics_step_host(host_lib, model, sim, state, tau, params, **kw)
+    rev = CP.physics_step_host(host_lib_reversed, model, sim, state, tau,
+                               params, **kw)
+    for a, b in zip(list(fwd.state) + [fwd.contact_report, fwd.geom_pos],
+                    list(rev.state) + [rev.contact_report, rev.geom_pos]):
+        assert torch.isfinite(a).all()
+        assert torch.equal(a, b)
+    if kind != "flight" or world:
+        assert fwd.contact_report.abs().max() > 0.0
 
 
 def test_legacy_constants_in_the_table(models):
