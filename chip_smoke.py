@@ -63,7 +63,11 @@ raises and the script exits non-zero.
              in [1e-5, 1e-2], off its 1e-5 floor; mean base z in
              (0.15, 0.5) m, done rate under 5%; r5_flagship's metric keys;
              the checkpoint read back equal; the rollout/update split,
-             env-steps/s of the iteration and peak memory.
+             env-steps/s of the iteration and peak memory. Iteration 4000
+             is on the video cadence: the pose buffer holds env 0's
+             [24, ...] pose arrays, videos/04000.gif is written, and
+             student_policy_latest.pt2 reloads to the policy's
+             act_student on the run's observations (torch.equal).
 10. hlp:     scripts/high_level_play_cuda.py's main path: the frozen
              runs/r4_flagship_4000 student under the goal-navigation env at
              1024 envs (trimesh), r5_hlp7's recipe, resumed from its train
@@ -78,7 +82,28 @@ raises and the script exits non-zero.
              kernel against its plain version on the low-level state at
              the iteration's end (in bulk, and the report entries that the
              walls change).
-12. result:  the kernels line, the card line, and the contract line.
+12. play:    scripts/play_cuda.py's play() on runs/r4_flagship_4000: 1 env,
+             150 steps at vx 1.0, a GIF; 600 terrain-variant launches and
+             no other; the state finite, the base 0.15-0.5 m above its
+             origin at every step, no reset; the mean vx of the last 100
+             steps printed.
+13. test:    scripts/test_cuda.py's run_env(3, 100): 400 terrain-variant
+             launches, finite rewards, the heights printed.
+14. eval:    scripts/eval_sweep_cuda.py's evaluate() on
+             runs/r4_flagship_4000, preset static_medium, 256 envs, 50
+             steps: 200 terrain-variant launches, every METRICS_FNS key
+             present and finite, done_rate under 0.05.
+15. hlp-play: scripts/hlp_play_cuda.py on runs/r5_hlp7 (16 envs, 50 steps,
+             a GIF): 200 terrain-variant launches, the state finite, the
+             goals, timeouts and falls printed.
+             Phases 12-15 each then hold the terrain variant to its plain
+             version on the state the phase ends on (1, 3, 256 and 16
+             envs: the last block of 8 only partly filled at 1 and 3), by
+             the rules of phase 4 on the env's own window, and time it.
+             Each GIF (and videos/04000.gif) must hold at least 2 frames;
+             without Pillow the phase holds render_frame_rgb's array
+             instead (its shape, the robot's and the terrain's pixels).
+16. result:  the kernels line, the card line, and the contract line.
 """
 
 from __future__ import annotations
@@ -222,6 +247,9 @@ def random_inputs(model, n, seed, airborne, dev):
     return state, tau, params, imp
 
 
+_OPS = {}
+
+
 def count_ops_per_env(model, sim_cfg, n=8, terrain=False, world=False,
                       fixed_base=False):
     """Arithmetic operations per env of one physics call, counted from the
@@ -254,6 +282,10 @@ def count_ops_per_env(model, sim_cfg, n=8, terrain=False, world=False,
             return out
 
     state, tau, params, imp = random_inputs(model, n, 1, False, "cpu")
+    key = (model.name, model.ng, sim_cfg.contact_model, terrain, world,
+           fixed_base)
+    if key in _OPS:
+        return _OPS[key]
     comps = dict(
         base_pos=_v3(state.base_pos),
         base_quat=tuple(state.base_quat[:, i] for i in range(4)),
@@ -277,7 +309,8 @@ def count_ops_per_env(model, sim_cfg, n=8, terrain=False, world=False,
     with Count():
         substep_chain(model, sim_cfg, layout, comps, boxes,
                       fixed_base=fixed_base)
-    return Count.ops / n
+    _OPS[key] = Count.ops / n
+    return _OPS[key]
 
 
 def time_ms(fn, reps):
@@ -323,7 +356,8 @@ def check_pinned(phase, state, out):
 
 
 def hold_kernel(phase, model, sim, make_inputs, n, terrain=None,
-                window=None, boxes=None, origins=None, fixed_base=False):
+                window=None, boxes=None, origins=None, fixed_base=False,
+                sloped=True):
     """The kernel against its plain version: torque-free flight strictly,
     grounded states with random torques in bulk; two launches on one input
     bitwise equal; then its time per launch (also at 1024 envs), the plain
@@ -334,7 +368,9 @@ def hold_kernel(phase, model, sim, make_inputs, n, terrain=None,
     (the world branch runs and adds nothing), and the grounded state's
     report entries that the walls change are counted and held in bulk.
     ``sim.contact_model`` and ``fixed_base`` pick the variant; with a fixed
-    base the kernel's base pose and velocities are checked exactly."""
+    base the kernel's base pose and velocities are checked exactly. With
+    ``sloped`` some grounded geom must be near a sloped surface (off for
+    an env's own state on a flat grid)."""
     import torch
     from rapid_locomotion_rl_tpu_torch.ops import cuda_physics as CP
     from rapid_locomotion_rl_tpu_torch.ops.soa_physics import physics_step_soa
@@ -407,7 +443,7 @@ def hold_kernel(phase, model, sim, make_inputs, n, terrain=None,
     win = None if window is None else window(state)
     gt = (None if terrain is None else CP.geom_terrain_at(
         model, sim, layout, state, terrain, win))
-    if terrain is not None:
+    if terrain is not None and sloped:
         # contact happens on the terrain's slopes, not only on flat cells
         on_slope = (gt[1][..., 2] < 0.999) & (
             out_p.geom_pos[..., 2] - gt[0] < 0.05)
@@ -942,6 +978,8 @@ def phase_train(dev):
     say("train", f"metrics.jsonl has r5_flagship's {len(ref)} keys")
     check_round_trip("train", runner, os.path.join(
         logdir, "checkpoints", "train_state_last.pkl"))
+    check_poses_and_video(runner, logdir)
+    check_export(runner, logdir)
 
     # the terrain variant alone on the flagship's own state and window
     grid = env.collision_grid
@@ -1147,6 +1185,295 @@ def phase_hlp(dev):
                 goals=goals)
 
 
+def have_pillow():
+    try:
+        import PIL  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def check_gif(phase, path, frame):
+    """With Pillow: the GIF at ``path`` exists and holds at least 2
+    frames. Without it: ``frame()`` (render_frame_rgb's array of a pose)
+    has the camera's shape, the robot's orange pixels and the terrain's
+    brown ones."""
+    import numpy as np
+    if have_pillow():
+        from PIL import Image
+        if not (path and os.path.exists(path)):
+            raise AssertionError(f"{phase}: no GIF at {path}")
+        with Image.open(path) as im:
+            n = im.n_frames
+        if n < 2:
+            raise AssertionError(f"{phase}: {path} holds {n} frame(s)")
+        say(phase, f"{path}: {n} frames, {os.path.getsize(path)} bytes")
+        return
+    say(phase, "no GIF written: Pillow is not installed; holding "
+        "render_frame_rgb's frame instead")
+    img = frame().astype(np.int32)
+    r, g, b = img[..., 0], img[..., 1], img[..., 2]
+    sky = (r == 188) & (g == 209) & (b == 229)
+    robot = (r > 140) & (g > 60) & (b < 120) & (g < 0.7 * r)
+    ground = ~sky & (r > b) & (g > b) & (g >= 0.75 * r)
+    say(phase, f"frame {img.shape}: {int(robot.sum())} robot, "
+        f"{int(ground.sum())} terrain, {int(sky.sum())} sky pixels")
+    if img.shape != (240, 320, 3) or robot.sum() < 30 or ground.sum() < 300:
+        raise AssertionError(f"{phase}: the frame lacks the robot or the "
+                             f"terrain")
+
+
+def check_poses_and_video(runner, logdir):
+    """The rollout's env-0 pose log reached the Runner's ring buffer, one
+    [24, ...] entry an iteration, its last pose env 0's final one; the
+    video of iteration 4000 (on the 400 cadence) was written."""
+    import numpy as np
+    from rapid_locomotion_rl_tpu_torch.utils.raster import render_frame_rgb
+    from rapid_locomotion_rl_tpu_torch.utils.render import env_terrain
+    buf = runner._pose_buffer
+    T = runner.args.num_steps_per_env
+    nv = runner.env.num_dof
+    shapes = [tuple(a.shape) for a in buf[-1]]
+    if len(buf) != ITERATIONS or shapes != [(T, 3), (T, 4), (T, nv),
+                                            (T, 3)]:
+        raise AssertionError(f"train: pose buffer of {len(buf)} entries, "
+                             f"shapes {shapes}")
+    last = runner.env_state.sim.base_pos[0].cpu().numpy()
+    if not (np.array_equal(buf[-1][0][-1], last)
+            and all(np.isfinite(a).all() for e in buf for a in e)):
+        raise AssertionError("train: the pose log is not env 0's")
+    say("train", f"pose buffer: {len(buf)} rollouts of env 0's poses "
+        f"{shapes}")
+    pos, quat, q, _ = buf[-1]
+    check_gif("train", os.path.join(logdir, "videos", "04000.gif"),
+              lambda: render_frame_rgb(runner.env.model, pos[-1], quat[-1],
+                                       q[-1], terrain=env_terrain(
+                                           runner.env)))
+
+
+def check_export(runner, logdir):
+    """student_policy_latest.pt2 reloads and gives the policy's
+    act_student output on the run's observations, one env a call (the
+    program's shapes are (1, num_obs) and (1, num_obs_history))."""
+    import torch
+    path = os.path.join(logdir, "checkpoints", "student_policy_latest.pt2")
+    program = torch.export.load(path).module()
+    s = runner.env_state
+    with torch.no_grad():
+        for i in range(8):
+            o, h = s.obs[i:i + 1], s.obs_history[i:i + 1]
+            got, want = program(o, h), runner.ac.act_student(o, h)
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"train: the .pt2 policy differs on env {i} by "
+                    f"{(got - want).abs().max().item():.3g}")
+    say("train", f"{os.path.basename(path)} reloads: act_student equal on "
+        f"8 envs' observations ({os.path.getsize(path)} bytes)")
+
+
+def phys_inputs(env, state):
+    """The physics call's inputs at an env state: its sim state, last
+    torques, DR parameters and implicit-PD impedance."""
+    from rapid_locomotion_rl_tpu_torch.ops.dynamics import PhysParams
+    dr = state.dr
+    imp = (env.d_gains * dr.Kd_factors + env._dt_sub * env.p_gains
+           * dr.Kp_factors) * dr.motor_strengths
+    return state.sim, state.torques, PhysParams(
+        dr.friction, dr.restitution, dr.payloads, dr.com_displacements), imp
+
+
+def hold_on_env(phase, env, state):
+    """The terrain variant against its plain version on the state an entry
+    ended on, by hold_kernel's rules, at the entry's width: the state
+    lifted 1.5 m with zero torques (flight, strict) and the state itself
+    with its last torques (grounded, in bulk), looked up through the env's
+    own window; two launches bitwise equal; times."""
+    import torch
+    sim, tau, params, imp = phys_inputs(env, state)
+    grid = env.collision_grid
+
+    def make_inputs(seed, airborne):
+        if not airborne:
+            return sim, tau, params, imp
+        up = sim.base_pos + torch.tensor([0.0, 0.0, 1.5], device=tau.device)
+        return sim._replace(base_pos=up), torch.zeros_like(tau), params, imp
+
+    k = hold_kernel(
+        phase, env.model, env.cfg.sim, make_inputs, env.num_envs,
+        terrain=grid, window=lambda s: env._window(grid, s.base_pos[:, 0],
+                                                   s.base_pos[:, 1]),
+        sloped=False)
+    k["n"] = env.num_envs
+    return k
+
+
+def finite_state(phase, state):
+    import torch
+    for name, v in state.sim._asdict().items():
+        if not torch.isfinite(v).all():
+            raise AssertionError(f"{phase}: sim state {name} is not finite")
+
+
+PLAY_STEPS = 150
+TEST_STEPS = 100
+EVAL_STEPS = 50
+HLP_PLAY_STEPS = 50
+LL_RUN = os.path.join("runs", "r4_flagship_4000")
+
+
+def phase_play(dev):
+    """scripts/play_cuda.py's play() on runs/r4_flagship_4000: 1 env, 150
+    steps at vx 1.0, a GIF into a scratch directory."""
+    import numpy as np
+    import torch
+    from rapid_locomotion_rl_tpu_torch.utils.raster import render_frame_rgb
+    from rapid_locomotion_rl_tpu_torch.utils.render import env_terrain
+    mod = script("play_cuda.py")
+    gif = os.path.join(run_dir("play"), "play.gif")
+    zero_counts()
+    t = time.time()
+    r = mod.play(LL_RUN, PLAY_STEPS, (1.0, 0.0, 0.0), gif=gif,
+                 device=str(dev), gif_stride=10)
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    counts = read_counts()
+    env, state = r["env"], r["state"]
+    check_counts("play", counts, terrain=PLAY_STEPS
+                 * env.cfg.control.decimation)
+    finite_state("play", state)
+    h = r["height"]
+    if env.num_envs != 1 or r["done"].any() or not (
+            (0.15 < h) & (h < 0.5)).all():
+        raise AssertionError(f"play: {env.num_envs} envs, resets "
+                             f"{int(r['done'].sum())}, base height "
+                             f"[{h.min():.3f}, {h.max():.3f}] m")
+    say("play", f"{PLAY_STEPS} steps x 1 env: {counts[1]} terrain-variant "
+        f"launches, no reset, base height [{h.min():.3f}, {h.max():.3f}] m; "
+        f"mean vx over the last 100 steps {np.mean(r['vx'][-100:]):.3f} m/s "
+        f"(command 1.0); {wall:.2f}s with the GIF "
+        f"({wall / PLAY_STEPS * 1e3:.1f} ms a step) | {card_line()}")
+    s = state.sim
+    check_gif("play", r["gif"], lambda: render_frame_rgb(
+        env.model, s.base_pos[0].cpu().numpy(), s.base_quat[0].cpu().numpy(),
+        s.q[0].cpu().numpy(), terrain=env_terrain(env)))
+    k = hold_on_env("play", env, state)
+    k.update(launches=counts[1], s_per_step=wall / PLAY_STEPS)
+    return k
+
+
+def phase_test(dev):
+    """scripts/test_cuda.py's run_env(3, 100): zero actions, finite
+    rewards."""
+    import torch
+    mod = script("test_cuda.py")
+    zero_counts()
+    t = time.time()
+    env, state, rows = mod.run_env(3, TEST_STEPS, device=str(dev))
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    counts = read_counts()
+    check_counts("test", counts, terrain=TEST_STEPS
+                 * env.cfg.control.decimation)
+    finite_state("test", state)
+    say("test", f"{TEST_STEPS} steps x 3 envs: {counts[1]} terrain-variant "
+        f"launches; (step, mean reward, mean height) {rows}; {wall:.2f}s "
+        f"({wall / TEST_STEPS * 1e3:.1f} ms a step)")
+    k = hold_on_env("test", env, state)
+    k.update(launches=counts[1], s_per_step=wall / TEST_STEPS)
+    return k
+
+
+
+def phase_eval(dev):
+    """scripts/eval_sweep_cuda.py's evaluate() on runs/r4_flagship_4000,
+    preset static_medium, 256 envs, 50 steps."""
+    import numpy as np
+    import torch
+    from rapid_locomotion_rl_tpu_torch.learn import metrics as M
+    from rapid_locomotion_rl_tpu_torch.learn.dr_eval import DR_SETTINGS
+    mod = script("eval_sweep_cuda.py")
+    seen = {}
+    probe = M.METRICS_FNS["base_height"]
+
+    def watched(env, state, ac, params):
+        seen.update(env=env, state=state)
+        return probe(env, state, ac, params)
+    M.METRICS_FNS["base_height"] = watched
+    zero_counts()
+    t = time.time()
+    try:
+        out = mod.evaluate(LL_RUN, "static_medium",
+                           DR_SETTINGS["static_medium"], 256, EVAL_STEPS,
+                           device=str(dev))
+    finally:
+        M.METRICS_FNS["base_height"] = probe
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    counts = read_counts()
+    env = seen["env"]
+    check_counts("eval", counts, terrain=EVAL_STEPS
+                 * env.cfg.control.decimation)
+    for name in M.METRICS_FNS:
+        keys = [k for k in out if k == name or k.startswith(name + "/")]
+        if not keys or not all(np.isfinite(out[k]).all() for k in keys):
+            raise AssertionError(f"eval: {name} missing or not finite")
+    if not out["done_rate"] < 0.05:
+        raise AssertionError(f"eval: done_rate {out['done_rate']}")
+    say("eval", f"static_medium, {EVAL_STEPS} steps x 256 envs: "
+        f"{counts[1]} terrain-variant launches; done_rate "
+        f"{out['done_rate']:.5f}, lin_vel_rmsd {out['lin_vel_rmsd']:.4f}, "
+        f"ang_vel_rmsd {out['ang_vel_rmsd']:.4f}, cost_of_transport "
+        f"{out['cost_of_transport']:.4f}, adaptation_loss "
+        f"{out['adaptation_loss']:.4f}, base_height "
+        f"{out['base_height']:.4f}, contact_rate {out['contact_rate']:.4f};"
+        f" {len(out)} keys finite; {wall:.2f}s "
+        f"({wall / EVAL_STEPS * 1e3:.1f} ms a step)")
+    k = hold_on_env("eval", env, seen["state"])
+    k.update(launches=counts[1], s_per_step=wall / EVAL_STEPS)
+    return k
+
+
+def phase_hlp_play(dev):
+    """scripts/hlp_play_cuda.py on runs/r5_hlp7: 16 envs, 50 steps, a
+    GIF."""
+    import torch
+    from rapid_locomotion_rl_tpu_torch.utils.raster import render_frame_rgb
+    from rapid_locomotion_rl_tpu_torch.utils.render import env_terrain
+    mod = script("hlp_play_cuda.py")
+    gif = os.path.join(run_dir("hlp_play"), "nav.gif")
+    argv = ["--hlp-run", os.path.join("runs", "r5_hlp7"), "--num-envs",
+            "16", "--steps", str(HLP_PLAY_STEPS), "--gif", gif, "--device",
+            str(dev)]
+    say("hlp-play", "hlp_play_cuda.py " + " ".join(argv))
+    zero_counts()
+    t = time.time()
+    r = mod.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    counts = read_counts()
+    ll_env, ll = r["env"].ll_env, r["state"].ll
+    check_counts("hlp-play", counts, terrain=HLP_PLAY_STEPS
+                 * ll_env.cfg.control.decimation)
+    finite_state("hlp-play", ll)
+    if not torch.isfinite(r["state"].obs).all():
+        raise AssertionError("hlp-play: observations are not finite")
+    say("hlp-play", f"{HLP_PLAY_STEPS} steps x 16 envs: {counts[1]} "
+        f"terrain-variant "
+        f"launches; goals {r['goals']}, timeouts {r['timeouts']}, falls "
+        f"{r['falls']}, episodes {r['episodes']}; closest approach "
+        f"{r['min_dist'].min():.3f} m (env {r['best_env']}); {wall:.2f}s "
+        f"with the GIF ({wall / HLP_PLAY_STEPS * 1e3:.1f} ms a step)")
+    s = ll.sim
+    b = r["best_env"]
+    check_gif("hlp-play", r["gif"], lambda: render_frame_rgb(
+        ll_env.model, s.base_pos[b].cpu().numpy(),
+        s.base_quat[b].cpu().numpy(), s.q[b].cpu().numpy(),
+        terrain=env_terrain(ll_env)))
+    k = hold_on_env("hlp-play", ll_env, ll)
+    k.update(launches=counts[1], s_per_step=wall / HLP_PLAY_STEPS)
+    return k
+
+
 def phase_hlp_world(dev):
     """The same entry with the corridor on (cfg.world, --world) from a
     fresh state: one iteration, every physics call through the terrain +
@@ -1241,10 +1568,19 @@ def main() -> int:
     tr = phase_train(dev)
     hl = phase_hlp(dev)
     hw = phase_hlp_world(dev)
+    new = [phase_play(dev), phase_test(dev), phase_eval(dev),
+           phase_hlp_play(dev)]
     say("result", "all phases passed")
     say("result", "K1 ms/launch at the main path's width | at 1024 envs: "
         + ", ".join(f"{v} {k['ms']:.4f} | {k['ms_1024']:.4f}" for v, k in
                     zip(VARIANTS, (k1, kt, kw, kl, kf))))
+    say("result", "K1 terrain on the evaluation entries' end states: "
+        + ", ".join(f"{name} N={k['n']}: {k['launches']} launches, "
+                    f"{k['ms']:.4f} ms/launch (plain {k['plain_ms']:.1f}, "
+                    f"bound {k['bound_ms']:.5f}), max |err| "
+                    f"{k['max_abs_err']:.3g}, {k['s_per_step']:.4f} s/step"
+                    for name, k in zip(("play", "test", "eval", "hlp-play"),
+                                       new)))
     kernels = [{
         "name": name,
         "route": "cuda",
@@ -1259,7 +1595,8 @@ def main() -> int:
         "library_ms": None,
     } for name, k, launches in (
         ("physics_step", k1, ro["launches"]),
-        ("physics_step_terrain", kt, tr["launches"] + hl["launches"]),
+        ("physics_step_terrain", kt, tr["launches"] + hl["launches"]
+         + sum(k["launches"] for k in new)),
         ("physics_step_terrain_world", kw, hw["launches"]),
         ("physics_step_terrain_legacy", kl, kl["launches"]),
         ("physics_step_terrain_legacy_fixed_base", kf, kf["launches"]))]

@@ -99,11 +99,22 @@ def rollout(env, ac: ActorCritic, ppo_args: PPOArgs, env_state, sampler,
     ``env.num_train_envs``) act deterministically, through the teacher
     (``eval_expert``) or the student. Returns the final env state, the
     stacked transitions [T, N, ...] and the stacked scalar step metrics
-    [T]."""
+    [T]. The metrics also hold env 0's pose after each step under
+    ``_render/{pos,quat,q,origin}`` ([T, ...], the origin the one the step
+    started from), which the Runner renders its videos from; an env state
+    without a ``sim`` (the HLP's) logs none."""
     n_train = env.num_train_envs
     steps: List[Transition] = []
     infos: List[Dict[str, torch.Tensor]] = []
-    for _ in range(num_steps):
+    # env-0 pose log: device buffers written in place, no host sync
+    poses = ({name: torch.empty((num_steps,) + tuple(x.shape[1:]),
+                                dtype=x.dtype, device=x.device)
+              for name, x in (("pos", env_state.sim.base_pos),
+                              ("quat", env_state.sim.base_quat),
+                              ("q", env_state.sim.q),
+                              ("origin", env_state.env_origins))}
+             if hasattr(env_state, "sim") else {})
+    for t in range(num_steps):
         obs = env_state.obs
         priv = env_state.privileged_obs
         hist = env_state.obs_history
@@ -121,7 +132,13 @@ def rollout(env, ac: ActorCritic, ppo_args: PPOArgs, env_state, sampler,
         else:
             actions = sampled
 
+        if poses:
+            poses["origin"][t] = env_state.env_origins[0]
         env_state, res = env.step(env_state, actions, sampler)
+        if poses:
+            poses["pos"][t] = env_state.sim.base_pos[0]
+            poses["quat"][t] = env_state.sim.base_quat[0]
+            poses["q"][t] = env_state.sim.q[0]
         # timeout bootstrap
         rewards = res.rew + ppo_args.gamma * values * res.info["time_outs"]
 
@@ -134,6 +151,7 @@ def rollout(env, ac: ActorCritic, ppo_args: PPOArgs, env_state, sampler,
                       if k not in ("env_bins", "time_outs")})
     traj = Transition(*(torch.stack(f) for f in zip(*steps)))
     info = {k: torch.stack([i[k] for i in infos]) for k in infos[0]}
+    info.update({f"_render/{k}": v for k, v in poses.items()})
     return env_state, traj, info
 
 
@@ -297,10 +315,12 @@ def ppo_update(ac: ActorCritic, ppo_args: PPOArgs, state: PPOState,
 
 def _aggregate_rollout_metrics(traj: Transition, infos):
     """Episode-sum accumulators add over the T axis; gauges take the
-    last step's value."""
+    last step's value; the ``_render/*`` pose log passes whole."""
     out = {}
     for k, v in infos.items():
-        if "/sum" in k or k.endswith("_count"):
+        if k.startswith("_render/"):
+            out[k] = v
+        elif "/sum" in k or k.endswith("_count"):
             out[k] = torch.sum(v, dim=0)
         else:
             out[k] = v[-1]

@@ -11,8 +11,13 @@ Checkpoints are the JAX package's layout (:mod:`..utils.checkpoint`):
 adaptive LR), the env state, the sampler's generator state under ``key``,
 the iteration and the step count; ``ac_weights_*.pkl`` and
 ``student_policy_latest.params.pkl`` hold the Flax params tree, which the
-JAX play scripts read. The JAX package also exports the student policy as
-StableHLO; the port has no counterpart of that file and does not write it.
+JAX play scripts read; ``student_policy_latest.pt2`` is the student
+policy as a ``torch.export`` program (the port's counterpart of the JAX
+package's StableHLO file).
+
+Videos: every ``save_video_interval`` iterations the Runner renders env
+0's poses over the last ``_video_window`` rollouts (the rollout's
+``_render/*`` log) into ``videos/{it:05d}.gif``.
 """
 
 from __future__ import annotations
@@ -27,7 +32,8 @@ import torch
 from .. import convert
 from ..models.networks import ACArgs, ActorCritic
 from ..sampler import Sampler
-from ..utils.checkpoint import load_pytree, save_pytree
+from ..utils.checkpoint import (export_student_policy, load_pytree,
+                                save_pytree)
 from ..utils.logger import MetricsLogger
 from .caches import DataCaches
 from .ppo import PPOArgs, PPOState, init_ppo_state, train_iteration
@@ -70,8 +76,9 @@ class Runner:
             args=self.ac_args).to(self.device)
         self.ppo_state: PPOState = init_ppo_state(self.ac, self.ppo_args)
         self.env_state = env.initial_state(self.sampler)
-        # env-0 poses for the videos: the port's rollout logs none yet
+        # env-0 pose log of the last rollouts, for the videos
         self._pose_buffer: list = []
+        self._video_window = 10
         # per iteration of the last learn(): rollout and update wall
         # times; the last iteration's stored scalar metrics
         self.timings: list = []
@@ -158,6 +165,13 @@ class Runner:
         logger = self.logger
         m = {k: v.detach().cpu().numpy() for k, v in metrics.items()}
 
+        # env-0 pose log of the rollout -> host ring buffer for the videos
+        if any(k.startswith("_render/") for k in m):
+            self._pose_buffer.append(tuple(
+                m.pop(f"_render/{n}") for n in ("pos", "quat", "q",
+                                                "origin")))
+            del self._pose_buffer[:-self._video_window]
+
         # per-bin sysid residual -> SlotCache
         if "sysid_residual_sum" in m:
             self.caches.slot_cache.log_sums(
@@ -203,12 +217,23 @@ class Runner:
                   f"lr {row.get('lr/mean', float('nan')):.2e}")
 
     def _log_video(self, it: int):
-        """Stick-figure video of env 0 over the last training rollouts.
-        The port's rollout logs no poses yet, so there is none to render
-        (the HLP state has no pose either)."""
+        """Video of env 0 over the last ``_video_window`` training rollouts
+        (the reference renders a separate deterministic rollout,
+        ppo/__init__.py:267-286; here the poses ride the training rollout).
+        The HLP state logs no pose, so an HLP run writes no video; without
+        Pillow nothing is written."""
         if not self._pose_buffer:
             return
-        raise NotImplementedError("rendering is not ported yet")
+        from ..utils.render import env_terrain, render_trajectory
+        pos, quat, q, origin = (
+            np.concatenate([b[i] for b in self._pose_buffer])
+            for i in range(4))
+        out = render_trajectory(
+            self.env.model, pos, quat, q, origin,
+            f"{self.logger.logdir}/videos/{it:05d}.gif",
+            stride=4, title=f"iter {it}", terrain=env_terrain(self.env))
+        if out:
+            print(f"video -> {out}")
 
     def _dump_curriculum(self, it: int):
         """curriculum/info.pkl: the SlotCache/DistCache summaries and the
@@ -240,9 +265,9 @@ class Runner:
         params = payload["ppo_state"].params
         save_pytree(params, f"{ckpt_dir}/ac_weights_{it:06d}.pkl")
         save_pytree(params, f"{ckpt_dir}/ac_weights_last.pkl")
-        # the deployment policy's params (the JAX package also writes a
-        # StableHLO export beside them, which has no torch counterpart)
-        save_pytree(params, f"{ckpt_dir}/student_policy_latest.params.pkl")
+        export_student_policy(self.ac, params, self.env.num_obs,
+                              self.env.num_obs_history,
+                              f"{ckpt_dir}/student_policy_latest")
 
     def load_checkpoint(self, path: str):
         """Resume from a train-state file of this port or of the JAX

@@ -15,6 +15,10 @@ The pickles were written under numpy 2, whose arrays pickle as
 ``numpy._core.multiarray``; under an older numpy that module is
 ``numpy.core.multiarray``, so the loader maps the name.
 Unpickling can run code: load only files this project wrote.
+
+:func:`export_student_policy` writes the deployment policy (the student:
+adaptation module and actor body) as a ``torch.export`` program beside
+its params, the port's counterpart of the JAX package's StableHLO file.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from collections import namedtuple
 from typing import Any
 
 import numpy as np
+import torch
 
 # stand-ins for the classes that the JAX package's checkpoints name
 PPOState = namedtuple("PPOState",
@@ -94,6 +99,41 @@ def save_pytree(tree: Any, path: str):
         with os.fdopen(fd, "wb") as f:
             pickle.dump(tree, f)
         os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
+class _Student(torch.nn.Module):
+    """(obs, obs_history) -> the deterministic student action."""
+
+    def __init__(self, ac):
+        super().__init__()
+        self.ac = ac
+
+    def forward(self, obs, obs_history):
+        return self.ac.act_student(obs, obs_history)
+
+
+def export_student_policy(ac, params, num_obs: int, num_hist: int,
+                          path_prefix: str):
+    """Serialize the deployment policy (obs, obs_history) -> actions.
+
+    Writes ``<prefix>.params.pkl`` (``params``, the Flax-layout tree) and
+    ``<prefix>.pt2``, a ``torch.export`` program of ``ac.act_student`` at
+    shapes (1, num_obs) and (1, num_hist) on the module's device; load it
+    with ``torch.export.load(path).module()``. A failed export raises."""
+    save_pytree(params, path_prefix + ".params.pkl")
+    dev = next(ac.parameters()).device
+    args = (torch.zeros((1, num_obs), device=dev),
+            torch.zeros((1, num_hist), device=dev))
+    program = torch.export.export(_Student(ac), args)
+    d = os.path.dirname(path_prefix) or "."
+    fd, tmp = tempfile.mkstemp(suffix=".pt2", dir=d)
+    os.close(fd)
+    try:
+        torch.export.save(program, tmp)
+        os.replace(tmp, path_prefix + ".pt2")
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)

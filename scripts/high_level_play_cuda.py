@@ -11,30 +11,21 @@ the Runner with PPO at 200 steps per env and iteration; 5% of the envs are
 eval envs acting through the deterministic teacher. The low-level run's
 ``cfg.world`` is kept as its ``parameters.json`` gives it; ``--world``
 switches its 4-wall corridor on around every env. The physics runs as
-the CUDA kernel on the card (``--device cuda``, the default) or as its
-plain PyTorch version on the CPU (``--device cpu``).
+the CUDA kernel on the card (``--device cuda``, the default; the script
+raises when no card is visible) or as its plain PyTorch version on the
+CPU (``--device cpu``).
 """
 
 import argparse
-import glob
-import json
 import os
 import sys
 from datetime import datetime
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-if ROOT not in sys.path:
-    sys.path.insert(0, ROOT)
-
-
-def latest_run(root="runs/rapid-locomotion"):
-    """The run whose train_state_last.pkl is newest (scripts/play.py's
-    rule)."""
-    ckpts = sorted(glob.glob(f"{root}/**/checkpoints/train_state_last.pkl",
-                             recursive=True), key=os.path.getmtime)
-    if not ckpts:
-        raise FileNotFoundError(f"no runs under {root}")
-    return os.path.dirname(os.path.dirname(ckpts[-1]))
+HERE = os.path.dirname(os.path.abspath(__file__))
+for _p in (ROOT, HERE):
+    if _p not in sys.path:
+        sys.path.insert(0, _p)
 
 
 def parse_args(argv=None):
@@ -94,32 +85,21 @@ def low_level_cfg(cfg, args):
 def build_runner(args):
     """The frozen low-level env and policy, the HLP env and its Runner
     (resumed when ``args.resume`` is set)."""
-    from rapid_locomotion_rl_tpu_torch.config import Cfg
-    from rapid_locomotion_rl_tpu_torch.convert import params_from_flax
+    from play_cuda import check_device, latest_run, load_policy, run_cfg
     from rapid_locomotion_rl_tpu_torch.envs.hlp import (HighLevelControlEnv,
                                                         HLPRewardScales)
     from rapid_locomotion_rl_tpu_torch.envs.legged_robot import \
         LeggedRobotEnv
     from rapid_locomotion_rl_tpu_torch.learn.ppo import PPOArgs
     from rapid_locomotion_rl_tpu_torch.learn.runner import Runner, RunnerArgs
-    from rapid_locomotion_rl_tpu_torch.models.networks import (ACArgs,
-                                                               ActorCritic)
-    from rapid_locomotion_rl_tpu_torch.utils.checkpoint import load_pytree
+    from rapid_locomotion_rl_tpu_torch.models.networks import ACArgs
 
     ll_run = args.ll_run or latest_run()
     print(f"frozen low-level policy from {ll_run}")
-    with open(os.path.join(ll_run, "parameters.json")) as f:
-        blob = json.load(f)
-    cfg = low_level_cfg(Cfg.from_dict(blob["Cfg"]), args)
-    ll_env = LeggedRobotEnv(cfg, device=args.device)
-    payload = load_pytree(
-        os.path.join(ll_run, "checkpoints/train_state_last.pkl"))
-    ll_ac = ActorCritic(ll_env.num_obs, ll_env.num_privileged_obs,
-                        ll_env.num_obs_history, ll_env.num_actions,
-                        ACArgs(**blob.get("AC_Args", {})))
-    ll_ac.load_state_dict(params_from_flax(
-        payload["ppo_state"].params["params"]))
-    ll_ac = ll_ac.to(ll_env.device)
+    cfg, blob = run_cfg(ll_run)
+    ll_env = LeggedRobotEnv(low_level_cfg(cfg, args),
+                            device=check_device(args.device))
+    ll_ac = load_policy(ll_run, ll_env, blob)
 
     class _Scales(HLPRewardScales):
         progress = args.progress_scale

@@ -16,11 +16,13 @@ The physics runs as the CUDA kernel on the card (``--device cuda``, the
 default; the script raises when no card is visible) or as its plain
 PyTorch version on the CPU (``--device cpu``).
 
-The port writes no ``videos/`` (its rollout logs no poses yet) and no
-StableHLO export of the student policy. Three flags of scripts/train.py
-are left out: ``--physics-impl`` (a choice among the JAX package's physics
-back ends), ``--mesh`` and ``--distributed`` (sharding over several chips
-and processes); the port runs on one card.
+Every 400 iterations the Runner renders env 0's poses of the last
+rollouts into ``videos/{it:05d}.gif`` (with Pillow), and each checkpoint
+exports the student policy as ``student_policy_latest.pt2`` beside its
+params. Three flags of scripts/train.py are left out: ``--physics-impl``
+(a choice among the JAX package's physics back ends), ``--mesh`` and
+``--distributed`` (sharding over several chips and processes); the port
+runs on one card.
 """
 
 import argparse
@@ -29,8 +31,10 @@ import sys
 from datetime import datetime
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-if ROOT not in sys.path:
-    sys.path.insert(0, ROOT)
+HERE = os.path.dirname(os.path.abspath(__file__))
+for _p in (ROOT, HERE):
+    if _p not in sys.path:
+        sys.path.insert(0, _p)
 
 
 def parse_args(argv=None):
@@ -117,18 +121,14 @@ def make_cfg(args):
 
 def build_runner(args):
     """The env and its Runner (resumed when ``args.resume`` is set)."""
-    import torch
-
+    from play_cuda import check_device
     from rapid_locomotion_rl_tpu_torch.envs.legged_robot import \
         LeggedRobotEnv
     from rapid_locomotion_rl_tpu_torch.learn.ppo import PPOArgs
     from rapid_locomotion_rl_tpu_torch.learn.runner import Runner, RunnerArgs
     from rapid_locomotion_rl_tpu_torch.models.networks import ACArgs
 
-    if torch.device(args.device).type == "cuda" and \
-            not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is visible; pass --device cpu to "
-                           "run the plain PyTorch physics on the CPU")
+    device = check_device(args.device)
     cfg = make_cfg(args)
     ppo_args = PPOArgs()
     if args.entropy_coef is not None:
@@ -142,7 +142,7 @@ def build_runner(args):
         stamp = datetime.now().strftime("%Y-%m-%d/%H%M%S.%f")
         args.logdir = f"runs/rapid-locomotion/{stamp}"
 
-    env = LeggedRobotEnv(cfg, device=args.device)
+    env = LeggedRobotEnv(cfg, device=device)
     runner = Runner(env, logdir=args.logdir, seed=args.seed,
                     ac_args=ac_args, ppo_args=ppo_args,
                     runner_args=RunnerArgs(max_iterations=args.iterations,

@@ -19,20 +19,26 @@ SCRIPTS = [os.path.join(RLTPU_ROOT_DIR, "scripts", f)
 
 PROBE = r"""
 import importlib.util
+import os
 import sys
 import chip_smoke
 import rapid_locomotion_rl_tpu_torch
 from rapid_locomotion_rl_tpu_torch import config, convert, sampler
 from rapid_locomotion_rl_tpu_torch.envs import (curriculum, hlp,
     legged_robot, rewards, terrain, world)
-from rapid_locomotion_rl_tpu_torch.learn import caches, ppo, runner
+from rapid_locomotion_rl_tpu_torch.learn import (caches, dr_eval, metrics,
+    ppo, runner)
 from rapid_locomotion_rl_tpu_torch.models import networks, robot_model, urdf
 from rapid_locomotion_rl_tpu_torch.ops import (contact, cuda_physics,
     dynamics, limb_dynamics, physics, quat, soa, soa_physics, world)
-from rapid_locomotion_rl_tpu_torch.utils import checkpoint, logger
-spec = importlib.util.spec_from_file_location(
-    "hlpc", "scripts/high_level_play_cuda.py")
-spec.loader.exec_module(importlib.util.module_from_spec(spec))
+from rapid_locomotion_rl_tpu_torch.utils import (checkpoint, debug, logger,
+    raster, render)
+for name in sorted(os.listdir("scripts")):
+    if name.endswith("_cuda.py"):
+        spec = importlib.util.spec_from_file_location(
+            name[:-3], os.path.join("scripts", name))
+        spec.loader.exec_module(importlib.util.module_from_spec(spec))
+        print("SCRIPT", name)
 bad = sorted(m for m in sys.modules
              if m in ("jax", "flax", "optax", "rapid_locomotion_rl_tpu")
              or m.startswith(("jax.", "jaxlib", "flax.", "optax.",
@@ -47,6 +53,10 @@ def test_port_imports_no_jax():
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
+    for name in ("eval_sweep_cuda.py", "high_level_play_cuda.py",
+                 "hlp_play_cuda.py", "play_cuda.py", "test_cuda.py",
+                 "train_cuda.py"):
+        assert f"SCRIPT {name}" in out.stdout, name
 
 
 def test_no_jax_import_lines():

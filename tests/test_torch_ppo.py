@@ -180,9 +180,10 @@ def test_adaptive_lr_rule():
 def test_train_iteration_metric_keys_match_jax():
     """One port training iteration on a small trimesh CPU env
     (config_mini_cheetah, 2 x 2 cells, 8 envs, 2 steps at decimation 1)
-    gives JAX make_train_iteration's metric keys, except the ``_render/*``
-    pose log, which is not ported. The JAX keys come from jax.eval_shape
-    (the AoS physics traces in seconds; nothing is compiled)."""
+    gives JAX make_train_iteration's metric keys, the ``_render/*`` pose
+    log of env 0 included, with their shapes. The JAX keys come from
+    jax.eval_shape (the AoS physics traces in seconds; nothing is
+    compiled)."""
     from rapid_locomotion_rl_tpu import config as jcfg
     from rapid_locomotion_rl_tpu.envs.legged_robot import LeggedRobotEnv as JE
     from rapid_locomotion_rl_tpu_torch import config as tcfg
@@ -216,8 +217,9 @@ def test_train_iteration_metric_keys_match_jax():
     state, ps, tm = TP.train_iteration(env, ac, TP.PPOArgs(), state, ps,
                                        sampler, entropy_coef=0.0,
                                        num_steps=2, timings=timings)
-    want = {k for k in jm if not k.startswith("_render/")}
-    assert set(tm) == want
+    assert {k for k in jm if k.startswith("_render/")} == {
+        f"_render/{k}" for k in ("pos", "quat", "q", "origin")}
+    assert set(tm) == set(jm)
     for k, v in tm.items():
         assert tuple(v.shape) == tuple(jm[k].shape), k
         assert torch.isfinite(v.float()).all(), k

@@ -144,9 +144,11 @@ def test_cpu_run_writes_r5_flagship_keys(cpu_run):
     for f in ("parameters.json", "curriculum/info.pkl",
               "checkpoints/train_state_last.pkl",
               "checkpoints/train_state_000001.pkl",
-              "checkpoints/ac_weights_last.pkl"):
+              "checkpoints/ac_weights_last.pkl",
+              "checkpoints/student_policy_latest.pt2"):
         assert (logdir / f).exists(), f
-    assert not (logdir / "videos").exists()
+    # iteration 0 is on the 400 video cadence
+    assert (logdir / "videos" / "00000.gif").stat().st_size > 2_000
     with open(logdir / "parameters.json") as f:
         ra = json.load(f)["RunnerArgs"]
     assert (ra["max_iterations"], ra["save_video_interval"]) == (2, 400)
