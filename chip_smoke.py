@@ -103,7 +103,42 @@ raises and the script exits non-zero.
              Each GIF (and videos/04000.gif) must hold at least 2 frames;
              without Pillow the phase holds render_frame_rgb's array
              instead (its shape, the robot's and the terrain's pixels).
-16. result:  the kernels line, the card line, and the contract line.
+16. aos:     the general (AoS) step, ops/physics.py, plain PyTorch and not
+             a kernel: on the card against the same code on the CPU at 256
+             Mini Cheetah envs over the mix, torque-free flight at
+             rtol/atol 2e-5 and grounded states with random torques by
+             phase 3's bulk rule, for both contact models; at 4000 envs
+             against K1's terrain (and legacy) variant in bulk, at the
+             repo's AoS-vs-SoA floor of 90%, on the state (the AoS step
+             reports the last substep's contact forces, K1 the first's);
+             ms, aten operations and CUDA kernels (torch.profiler) per
+             call.
+17. aos-train: scripts/train_cuda.py's main with --physics-impl aos on the
+             flagship, resumed from runs/r5_flagship, one iteration: no K1
+             launch, finite losses and params, KL in [0.003, 0.1], LR in
+             [1e-5, 1e-2], mean base z in (0.15, 0.5) m; env-steps/s and
+             the rollout/update split.
+18. mjcf:    config_go1 with resources/robots/go1/xml/go1.xml (ng 38, nr
+             13, dof_velocity 100), 4096 envs on the plane under the
+             runs/r4_go1 policy for one horizon: exactly 96 plane-variant
+             launches, finite; the variant held to its plain version on
+             the end state by phase 3's rules, and timed; then the same
+             env on the AoS step for a horizon, finite, no K1 launch.
+19. heights: config_mini_cheetah with terrain.measure_heights (187 points,
+             229 observations) at 4000 envs on its trimesh under a fresh
+             policy of that width, one horizon: 96 terrain-variant
+             launches, finite; the sensor on the card equal to the same
+             rule on the CPU at the same points (exact), on the env's
+             state and on the mix's grid, and the contact lookup's cells
+             and fractions there.
+20. vecenv:  envs/vec_env.py's VecEnvAdapter over Go1 (4096 envs, the
+             plane): reset, ten steps, reset_idx (44 plane-variant
+             launches); the ten steps' obs split and padded at their
+             dones (learn/trajectories.py) and back, equal.
+             Phases 16-20 each print their seconds, K1 launches and peak
+             memory; the launches of 18-20 join the plane and terrain
+             entries of the kernels line.
+21. result:  the kernels line, the card line, and the contract line.
 """
 
 from __future__ import annotations
@@ -327,21 +362,22 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def mostly_close(phase, name, a, b, atol, where=None, label="grounded"):
+def mostly_close(phase, name, a, b, atol, where=None, label="grounded",
+                 frac=0.99):
     """Bulk agreement: states on a contact-branch boundary flip on fp-level
     differences, so grounded states agree entry by entry only in bulk. The
     floor is 99% of entries within atol + 1e-3 |ref|: tighter than the 80%
     of tests/test_soa_physics.py's bulk rule, and borne out on these seeds
     (100% measured on the H100). ``where`` restricts the count to the
-    entries it marks."""
+    entries it marks; ``frac`` sets another floor."""
     close = (a - b).abs() <= atol + 1e-3 * b.abs()
     if where is not None:
         close = close[where]
     ok = close.float().mean().item()
     say(phase, f"{label} {name}: {ok:.4f} of {close.numel()} within atol "
         f"{atol} (max |err| {(a - b).abs().max().item():.3g})")
-    if not ok >= 0.99:
-        raise AssertionError(f"{label} {name}: only {ok:.4f} < 0.99 agree")
+    if not ok >= frac:
+        raise AssertionError(f"{label} {name}: only {ok:.4f} < {frac} agree")
 
 
 def check_pinned(phase, state, out):
@@ -1300,8 +1336,8 @@ def hold_on_env(phase, env, state):
 
     k = hold_kernel(
         phase, env.model, env.cfg.sim, make_inputs, env.num_envs,
-        terrain=grid, window=lambda s: env._window(grid, s.base_pos[:, 0],
-                                                   s.base_pos[:, 1]),
+        terrain=grid, window=None if grid is None else (
+            lambda s: env._window(grid, s.base_pos[:, 0], s.base_pos[:, 1])),
         sloped=False)
     k["n"] = env.num_envs
     return k
@@ -1553,6 +1589,443 @@ def phase_hlp_world(dev):
     return dict(launches=wld, timings=tm)
 
 
+# ---------------------------------------------------------------------------
+# the general (AoS) step, MJCF, height sensing and the VecEnv
+# ---------------------------------------------------------------------------
+N_AOS = 256
+AOS_ITERATIONS = 1
+
+
+def phase_start():
+    """Zeroed peak memory and the start time of a phase."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return time.time()
+
+
+def phase_end(phase, t, launches):
+    """The phase's seconds, K1 launches and peak memory, on one line."""
+    import torch
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    say(phase, f"phase {time.time() - t:.2f}s, K1 launches {launches}, "
+        f"peak memory {peak / 2**20:.1f} MiB | {card_line()}")
+    return peak
+
+
+def cuda_kernels_per_call(fn):
+    """CUDA kernels one call of ``fn`` runs, counted by torch.profiler's
+    device events, and the aten operations it dispatches; the kernel count
+    is None when the profiler records no device event."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+    fn()
+    torch.cuda.synchronize()
+    with Count():
+        fn()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (len(dev_events) or None), Count.n
+
+
+def to_cpu(x):
+    """A tensor, or a tuple or named tuple of them, on the CPU."""
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.cpu()
+    items = [to_cpu(v) for v in x]
+    return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+
+
+def hold_states(phase, out_a, out_b, strict, label, frac=0.99,
+                report=True):
+    """Two StepOutputs: strictly (rtol/atol 2e-5 on the state, 1e-5 on
+    geom positions, no contact force) or in bulk by mostly_close's rule
+    with its floor ``frac`` (the contact reports too, unless ``report`` is
+    off); returns the strict case's max |err|."""
+    import torch
+    err = 0.0
+    for name in out_b.state._fields:
+        a, b = getattr(out_a.state, name), getattr(out_b.state, name)
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"{label} {name}: non-finite output")
+        if strict:
+            torch.testing.assert_close(a, b, rtol=2e-5, atol=2e-5,
+                                       msg=lambda m: f"{label} {name}: {m}")
+            err = max(err, (a - b).abs().max().item())
+        else:
+            atol = (1e-2 if name in ("qd", "base_lin_vel", "base_ang_vel")
+                    else 1e-3)
+            mostly_close(phase, name, a, b, atol, label=label, frac=frac)
+    torch.testing.assert_close(out_a.geom_pos, out_b.geom_pos, rtol=1e-5,
+                               atol=1e-5)
+    if strict:
+        if out_a.contact_report.abs().max().item() != 0.0:
+            raise AssertionError(f"{label}: contact force in the air")
+    else:
+        if out_b.contact_report.abs().max().item() < 1.0:
+            raise AssertionError(f"{label}: no contact")
+    if not strict and report:
+        mostly_close(phase, "contact_report", out_a.contact_report,
+                     out_b.contact_report, 0.5,
+                     where=out_b.contact_report != 0, label=label, frac=frac)
+    return err
+
+
+def phase_aos(dev, tc, grid):
+    """The general (AoS) step, ops/physics.py: plain PyTorch, not a
+    kernel. On the card against the same code on the CPU at 256 Mini
+    Cheetah envs over the mix (flight strictly, grounded in bulk by the
+    99% rule), for both contact models; at 4000 envs against K1's terrain
+    variant (and the legacy one) in bulk by the repo's AoS-vs-SoA floor of
+    90% (tests/test_contact_features.py: the two orders of the same
+    algebra part on contact-branch boundaries more often than two builds
+    of one order), on the state only (the AoS step reports the last
+    substep's contact forces, K1 the first's); ms, aten operations and
+    CUDA kernels per call."""
+    import copy
+    import numpy as np
+    import torch
+    from rapid_locomotion_rl_tpu_torch.config import config_mini_cheetah
+    from rapid_locomotion_rl_tpu_torch.ops import cuda_physics as CP
+    from rapid_locomotion_rl_tpu_torch.ops.contact import (
+        blocked_window, terrain_height_bilinear)
+    from rapid_locomotion_rl_tpu_torch.ops.physics import physics_step
+    t0 = phase_start()
+    zero_counts()
+    cfg, model = robot(config_mini_cheetah)
+    grid_cpu = grid._replace(height=grid.height.cpu())
+
+    def inputs(n, seed, airborne):
+        rng = np.random.default_rng(SEED + 7)
+        xy = torch.tensor(np.stack([
+            rng.uniform(0.5, tc.num_rows * tc.terrain_length - 0.5, n),
+            rng.uniform(0.5, tc.num_cols * tc.terrain_width - 0.5, n)], -1),
+            dtype=torch.float32, device=dev)
+        under = terrain_height_bilinear(grid, xy[:, 0], xy[:, 1])
+        state, tau, params, imp = random_inputs(model, n, seed, airborne,
+                                                dev)
+        pos = torch.cat([xy, state.base_pos[:, 2:] + under[:, None]], -1)
+        return state._replace(base_pos=pos), tau, params, imp
+
+    result = {}
+    for cm in ("apparent", "legacy"):
+        sim = copy.deepcopy(cfg.sim)
+        sim.contact_model = cm
+        for airborne in (True, False):
+            state, tau, params, imp = inputs(N_AOS, 3 if airborne else 0,
+                                             airborne)
+            out_c = physics_step(model, sim, state, tau, params, grid,
+                                 implicit_damp=imp)
+            out_h = physics_step(model, sim, *to_cpu((state, tau, params)),
+                                 grid_cpu, implicit_damp=imp.cpu())
+            label = f"{cm} {'flight' if airborne else 'grounded'}"
+            err = hold_states("aos", to_cpu(out_c), out_h, airborne,
+                              f"card vs CPU {label}")
+            if airborne:
+                result[f"{cm}_card_cpu_err"] = err
+                say("aos", f"card vs CPU, {label} N={N_AOS}: state max "
+                    f"|err| {err:.3g} (rtol/atol 2e-5), geom_pos ok (1e-5)")
+        # against K1 at the flagship's width, in bulk
+        state, tau, params, imp = inputs(N_MC, 0, False)
+        win = blocked_window(grid, state.base_pos[:, 0], state.base_pos[:, 1])
+        out_a = physics_step(model, sim, state, tau, params, grid,
+                             implicit_damp=imp)
+        out_k = CP.physics_step_cuda(model, sim, state, tau, params,
+                                     terrain=grid, implicit_damp=imp,
+                                     terrain_window=win)
+        # the report is not compared: the AoS step reports the last
+        # substep's contact forces, K1 (as the JAX SoA step) the first's
+        hold_states("aos", out_a, out_k, False, f"AoS vs K1 {cm} N={N_MC}",
+                    frac=0.9, report=False)
+        ms = time_ms(lambda: physics_step(model, sim, state, tau, params,
+                                          grid, implicit_damp=imp), 3)
+        kernels, ops = cuda_kernels_per_call(
+            lambda: physics_step(model, sim, state, tau, params, grid,
+                                 implicit_damp=imp))
+        result[cm] = dict(ms=ms, kernels=kernels, ops=ops)
+        say("aos", f"{cm}: {ms:.1f} ms/call at N={N_MC} ({sim.num_substeps} "
+            f"substeps), {ops} aten operations and "
+            + (f"{kernels} CUDA kernels" if kernels else
+               "CUDA kernels not measured (the profiler saw none)")
+            + " a call")
+    # K1 ran only to be compared with
+    result["peak_bytes"] = phase_end(
+        "aos", t0, f"{sum(read_counts())} (the comparisons)")
+    return result
+
+
+def phase_aos_train(dev):
+    """scripts/train_cuda.py's main with --physics-impl aos on the flagship
+    (config_mini_cheetah, 4000 envs, trimesh), resumed from
+    runs/r5_flagship, one Runner iteration into a scratch logdir: no K1
+    launch, finite losses and params, KL and LR in range, the robots up."""
+    import numpy as np
+    import torch
+    mod = script("train_cuda.py")
+    logdir = run_dir("aos_train")
+    argv = ["--resume", MC_STATE, "--iterations", str(AOS_ITERATIONS),
+            "--logdir", logdir, "--device", str(dev), "--physics-impl",
+            "aos"]
+    say("aos-train", "train_cuda.py " + " ".join(argv))
+    t0 = phase_start()
+    zero_counts()
+    runner = mod.main(argv)
+    torch.cuda.synchronize()
+    env = runner.env
+    if env.physics_impl != "aos" or env._window is not None:
+        raise AssertionError("aos-train: the env is not on the AoS step")
+    check_counts("aos-train", read_counts())
+    if len(runner.timings) != AOS_ITERATIONS:
+        raise AssertionError(f"{len(runner.timings)} iterations ran")
+    m = runner.last_metrics
+    for k in ("mean_value_loss", "mean_surrogate_loss",
+              "mean_adaptation_loss", "kl", "lr", "mean_reward"):
+        if not np.isfinite(m[k]):
+            raise AssertionError(f"aos-train: {k} = {m[k]}")
+    if not 0.003 <= m["kl"] <= 0.1:
+        raise AssertionError(f"aos-train: kl {m['kl']} out of [0.003, 0.1]")
+    # the LR is a float32: its floor 1e-5 is 9.99999975e-06
+    if not float(np.float32(1e-5)) <= m["lr"] <= 1e-2:
+        raise AssertionError(f"aos-train: lr {m['lr']} out of [1e-5, 1e-2]")
+    if not all(torch.isfinite(p).all() for p in runner.ac.parameters()):
+        raise AssertionError("aos-train: non-finite parameters")
+    finite_state("aos-train", runner.env_state)
+    z = runner.env_state.sim.base_pos[:, 2].mean().item()
+    if not 0.15 < z < 0.5:
+        raise AssertionError(f"aos-train: mean base z {z:.3f}")
+    tm = runner.timings[-1]
+    total = tm["rollout_s"] + tm["update_s"]
+    steps = runner.args.num_steps_per_env
+    say("aos-train", f"iteration {runner.current_learning_iteration - 1}: "
+        f"0 K1 launches; rollout {tm['rollout_s']:.3f}s "
+        f"({tm['rollout_s'] / steps * 1e3:.1f} ms/env step), update "
+        f"{tm['update_s']:.3f}s ({tm['update_s'] / total:.1%}), "
+        f"{steps * env.num_envs / total:.0f} env-steps/s; value loss "
+        f"{m['mean_value_loss']:.4g}, surrogate "
+        f"{m['mean_surrogate_loss']:.4g}, kl {m['kl']:.4g}, lr {m['lr']:.4g}, mean reward "
+        f"{m['mean_reward']:.5f}, base z {z:.3f} m")
+    peak = phase_end("aos-train", t0, 0)
+    return dict(timings=tm, env_steps_per_s=steps * env.num_envs / total,
+                peak_bytes=peak)
+
+
+MJCF_ASSET = "{ROOT}/resources/robots/go1/xml/go1.xml"
+
+
+def go1_xml_env(dev, impl="auto"):
+    from rapid_locomotion_rl_tpu_torch.config import config_go1
+    from rapid_locomotion_rl_tpu_torch.envs.legged_robot import LeggedRobotEnv
+    cfg = config_go1()
+    cfg.asset.file = MJCF_ASSET
+    cfg.sim.physics_impl = impl
+    return LeggedRobotEnv(cfg, device=dev)
+
+
+def horizon(env, ac, state, sampler):
+    """One PPO horizon of the policy; the trajectory finite."""
+    import torch
+    from rapid_locomotion_rl_tpu_torch.learn.ppo import PPOArgs, rollout
+    state, traj, info = rollout(env, ac, PPOArgs(), state, sampler, HORIZON)
+    torch.cuda.synchronize()
+    for k, v in list(traj._asdict().items()) + list(info.items()) + \
+            list(state.sim._asdict().items()):
+        if v.is_floating_point() and not torch.isfinite(v).all():
+            raise AssertionError(f"{k} is not finite")
+    return state, traj
+
+
+def phase_mjcf(dev):
+    """config_go1 with the MJCF asset (resources/robots/go1/xml/go1.xml),
+    4096 envs on the plane, under the runs/r4_go1 policy for one horizon:
+    all 96 calls through K1's plane variant with the MJCF constant table;
+    the variant held to its plain version on the end state; then the same
+    env on the AoS step for a horizon."""
+    import torch
+    from rapid_locomotion_rl_tpu_torch.sampler import Sampler
+    t0 = phase_start()
+    env = go1_xml_env(dev)
+    m = env.model
+    ac, _ = load_run(env, WEIGHTS, dev)
+    sampler = Sampler(SEED, dev)
+    state = env.initial_state(sampler)
+    say("mjcf", f"MJCF Go1 ({env.num_envs} envs, nv={m.nv}, ng={m.ng}, "
+        f"nr={m.nr}, dof_velocity {float(m.dof_velocity.min()):.0f}-"
+        f"{float(m.dof_velocity.max()):.0f}; feet {env.feet_indices}, "
+        f"termination {env.termination_contact_indices}, penalised "
+        f"{env.penalised_contact_indices}) and {WEIGHTS} loaded")
+    zero_counts()
+    t = time.time()
+    state, traj = horizon(env, ac, state, sampler)
+    wall = time.time() - t
+    counts = read_counts()
+    check_counts("mjcf", counts, plane=HORIZON * env.cfg.control.decimation)
+    say("mjcf", f"{HORIZON} steps x {env.num_envs} envs: {counts[0]} "
+        f"plane-variant launches; mean base z "
+        f"{state.sim.base_pos[:, 2].mean().item():.3f} m, done rate "
+        f"{traj.dones.float().mean().item():.4f}; {wall:.3f}s "
+        f"({HORIZON * env.num_envs / wall:.0f} env-steps/s)")
+    k = hold_on_env("mjcf", env, state)
+    k["launches"] = counts[0]
+    # the same env on the general step
+    aos = go1_xml_env(dev, "aos")
+    zero_counts()
+    t = time.time()
+    s2, traj2 = horizon(aos, ac, aos.initial_state(Sampler(SEED, dev)),
+                        Sampler(SEED, dev))
+    wall2 = time.time() - t
+    check_counts("mjcf aos", read_counts())
+    say("mjcf", f"AoS step: {HORIZON} steps x {aos.num_envs} envs, 0 K1 "
+        f"launches, finite; mean base z "
+        f"{s2.sim.base_pos[:, 2].mean().item():.3f} m; {wall2:.2f}s "
+        f"({HORIZON * aos.num_envs / wall2:.0f} env-steps/s)")
+    k["peak_bytes"] = phase_end("mjcf", t0, counts[0])
+    return k
+
+
+def phase_heights(dev, tc, grid):
+    """config_mini_cheetah with terrain.measure_heights (187 points) at
+    4000 envs on its trimesh under a fresh policy of that width, one
+    horizon: 96 terrain-variant launches, finite; the env's measured
+    heights on the card equal to the same rule on the CPU (a gather and a
+    min: exact), on the env's state and on the mix's grid."""
+    import numpy as np
+    import torch
+    from rapid_locomotion_rl_tpu_torch.config import config_mini_cheetah
+    from rapid_locomotion_rl_tpu_torch.envs.legged_robot import LeggedRobotEnv
+    from rapid_locomotion_rl_tpu_torch.models.networks import (ACArgs,
+                                                               ActorCritic)
+    from rapid_locomotion_rl_tpu_torch.ops.contact import (
+        _cells, terrain_height_min3_patch)
+    from rapid_locomotion_rl_tpu_torch.sampler import Sampler
+    t0 = phase_start()
+    cfg = config_mini_cheetah()
+    cfg.terrain.measure_heights = True
+    cfg.env.num_observations = 42 + 187
+    env = LeggedRobotEnv(cfg, device=dev)
+    torch.manual_seed(SEED)
+    ac = ActorCritic(env.num_obs, env.num_privileged_obs,
+                     env.num_obs_history, env.num_actions, ACArgs()).to(dev)
+    sampler = Sampler(SEED, dev)
+    state = env.initial_state(sampler)
+    zero_counts()
+    t = time.time()
+    state, traj = horizon(env, ac, state, sampler)
+    wall = time.time() - t
+    counts = read_counts()
+    check_counts("heights", counts,
+                 terrain=HORIZON * cfg.control.decimation)
+    mh = state.measured_heights
+    if tuple(mh.shape) != (env.num_envs, 187) or not torch.isfinite(mh).all():
+        raise AssertionError(f"heights: measured_heights {tuple(mh.shape)}")
+    say("heights", f"{HORIZON} steps x {env.num_envs} envs, obs "
+        f"{env.num_obs}: {counts[1]} terrain-variant launches, finite; "
+        f"measured heights [{mh.min().item():.3f}, {mh.max().item():.3f}] "
+        f"m (patch P={env._sense_patch_P}); {wall:.3f}s "
+        f"({HORIZON * env.num_envs / wall:.0f} env-steps/s)")
+    # the sensor on the card against the same rule on the CPU, at the same
+    # points
+    got = env._get_heights(state.sim)
+    pts = env._height_points_world(state.sim)
+    g = env.terrain_grid
+    base = state.sim.base_pos
+    ref = terrain_height_min3_patch(
+        g._replace(height=g.height.cpu()), *to_cpu((
+            base[:, 0], base[:, 1], pts[..., 0], pts[..., 1])),
+        env._sense_patch_P)
+    if not torch.equal(got.cpu(), ref):
+        raise AssertionError(f"heights: card and CPU differ in "
+                             f"{int((got.cpu() != ref).sum())} entries")
+    # and on the mix's (non-flat) grid, bases spread over it
+    rng = np.random.default_rng(SEED + 3)
+    n = N_MC
+    base = torch.tensor(np.stack([
+        rng.uniform(1, tc.num_rows * tc.terrain_length - 1, n),
+        rng.uniform(1, tc.num_cols * tc.terrain_width - 1, n)], -1),
+        dtype=torch.float32, device=dev)
+    pts = base[:, None, :] + torch.tensor(
+        rng.normal(0, 0.5, (n, 187, 2)), dtype=torch.float32, device=dev)
+    P = env._sense_patch_P
+    hc = terrain_height_min3_patch(grid, base[:, 0], base[:, 1],
+                                   pts[..., 0], pts[..., 1], P)
+    hh = terrain_height_min3_patch(grid._replace(height=grid.height.cpu()),
+                                   *to_cpu((base[:, 0], base[:, 1],
+                                            pts[..., 0], pts[..., 1])), P)
+    if not torch.equal(hc.cpu(), hh):
+        raise AssertionError("heights: card and CPU differ on the mix")
+    # the contact lookup's cells, from the same true quotient
+    cells_c = _cells(grid, pts[..., 0], pts[..., 1], None)
+    cells_h = _cells(grid._replace(height=grid.height.cpu()),
+                     *to_cpu((pts[..., 0], pts[..., 1])), None)
+    if not all(torch.equal(a.cpu(), b) for a, b in zip(cells_c, cells_h)):
+        raise AssertionError("heights: the lookup's cells and fractions "
+                             "differ between card and CPU")
+    say("heights", f"sensor on the card equal to the CPU's: the env's "
+        f"{tuple(got.shape)} (flat grid) and {n} x 187 points on the mix "
+        f"(heights [{hh.min().item():.3f}, {hh.max().item():.3f}] m); the "
+        f"contact lookup's cells and fractions there equal too")
+    peak = phase_end("heights", t0, counts[1])
+    return dict(launches=counts[1], peak_bytes=peak, s=wall)
+
+
+def phase_vecenv(dev):
+    """envs/vec_env.py's VecEnvAdapter over Go1 (config_go1, 4096 envs,
+    the plane): reset, ten steps, reset_idx, and the ten steps' obs split
+    and padded at their dones and back, equal."""
+    import torch
+    from rapid_locomotion_rl_tpu_torch.config import config_go1
+    from rapid_locomotion_rl_tpu_torch.envs.legged_robot import LeggedRobotEnv
+    from rapid_locomotion_rl_tpu_torch.envs.vec_env import VecEnvAdapter
+    from rapid_locomotion_rl_tpu_torch.learn.trajectories import (
+        split_and_pad_trajectories, unpad_trajectories)
+    t0 = phase_start()
+    cfg = config_go1()
+    vec = VecEnvAdapter(LeggedRobotEnv(cfg, device=dev), seed=SEED)
+    zero_counts()
+    vec.reset()
+    gen = torch.Generator(dev)
+    gen.manual_seed(SEED)
+    obs, dones = [], []
+    for _ in range(10):
+        a = 0.3 * torch.randn((vec.num_envs, vec.num_actions), device=dev,
+                              generator=gen)
+        o, rew, done, info = vec.step(a)
+        obs.append(o["obs"])
+        dones.append(done)
+        if not (torch.isfinite(o["obs"]).all() and torch.isfinite(rew).all()):
+            raise AssertionError("vecenv: non-finite step")
+    vec.reset_idx(torch.arange(0, vec.num_envs, 2, device=dev))
+    if not (vec.episode_length_buf[::2] == 0).all():
+        raise AssertionError("vecenv: reset_idx left an episode running")
+    counts = read_counts()
+    check_counts("vecenv", counts, plane=11 * cfg.control.decimation)
+    x, d = torch.stack(obs), torch.stack(dones)
+    padded, masks = split_and_pad_trajectories(x, d)
+    back = unpad_trajectories(padded, d, vec.num_envs)
+    if not torch.equal(back, x) or int(masks.sum()) != x.shape[0] * x.shape[1]:
+        raise AssertionError("vecenv: the trajectories do not round-trip")
+    say("vecenv", f"reset + 10 steps x {vec.num_envs} envs: {counts[0]} "
+        f"plane-variant launches, {int(d.sum())} dones, "
+        f"{int(masks[0].sum())} trajectories; split/pad of obs "
+        f"{tuple(x.shape)} -> {tuple(padded.shape)} and back equal; "
+        f"reset_idx of {vec.num_envs // 2} envs")
+    peak = phase_end("vecenv", t0, counts[0])
+    return dict(launches=counts[0], peak_bytes=peak)
+
+
 def main() -> int:
     dev = phase_device()
     phase_build()
@@ -1563,14 +2036,27 @@ def main() -> int:
     phase_world(dev, tc, grid, N_MC, "world-4000")
     kl = phase_variant(dev, tc, grid, "legacy", fixed_base=False)
     kf = phase_variant(dev, tc, grid, "fixed-base", fixed_base=True)
-    del grid
     ro = phase_rollout(dev)
     tr = phase_train(dev)
     hl = phase_hlp(dev)
     hw = phase_hlp_world(dev)
     new = [phase_play(dev), phase_test(dev), phase_eval(dev),
            phase_hlp_play(dev)]
+    aos = phase_aos(dev, tc, grid)
+    aos_train = phase_aos_train(dev)
+    mj = phase_mjcf(dev)
+    hs = phase_heights(dev, tc, grid)
+    del grid
+    ve = phase_vecenv(dev)
     say("result", "all phases passed")
+    say("result", "AoS step (plain PyTorch) ms/call at 4000 envs: "
+        + ", ".join(f"{cm} {aos[cm]['ms']:.1f} ({aos[cm]['ops']} aten "
+                    f"operations, {aos[cm]['kernels'] or 'not measured'} "
+                    f"CUDA kernels)" for cm in ("apparent", "legacy"))
+        + f"; AoS flagship iteration {aos_train['env_steps_per_s']:.0f} "
+        f"env-steps/s; K1 plane on the MJCF end state "
+        f"{mj['ms']:.4f} ms/launch (plain {mj['plain_ms']:.1f}, bound "
+        f"{mj['bound_ms']:.5f}), max |err| {mj['max_abs_err']:.3g}")
     say("result", "K1 ms/launch at the main path's width | at 1024 envs: "
         + ", ".join(f"{v} {k['ms']:.4f} | {k['ms_1024']:.4f}" for v, k in
                     zip(VARIANTS, (k1, kt, kw, kl, kf))))
@@ -1594,9 +2080,10 @@ def main() -> int:
         "bound_by": k["bound_by"],
         "library_ms": None,
     } for name, k, launches in (
-        ("physics_step", k1, ro["launches"]),
+        ("physics_step", k1, ro["launches"] + mj["launches"]
+         + ve["launches"]),
         ("physics_step_terrain", kt, tr["launches"] + hl["launches"]
-         + sum(k["launches"] for k in new)),
+         + sum(k["launches"] for k in new) + hs["launches"]),
         ("physics_step_terrain_world", kw, hw["launches"]),
         ("physics_step_terrain_legacy", kl, kl["launches"]),
         ("physics_step_terrain_legacy_fixed_base", kf, kf["launches"]))]

@@ -4,19 +4,30 @@ package's ``envs/legged_robot.py``).
 ``env.step(state, actions, sampler) -> (state', StepResult)`` over an
 :class:`EnvState` of batched tensors on the env's device. Resets are masked
 ``torch.where`` merges over the dense env axis; the decimated PD control
-loop calls the physics step (:func:`..ops.cuda_physics.physics_step_cuda`:
-the CUDA kernel on the card, the plain version on the CPU) ``decimation``
-times; command resampling and the grid-adaptive curriculum run on the
-device. Every random draw goes through the :class:`..sampler.Sampler`
-under a stream name.
+loop calls the physics step ``decimation`` times; command resampling and
+the grid-adaptive curriculum run on the device. Every random draw goes
+through the :class:`..sampler.Sampler` under a stream name.
 
 Terrain: the plane, or a heightfield/trimesh grid from
 :class:`.terrain.Terrain` with custom env origins, the spawn ranges around
 them, a per-step window into the collision grid that every physics call of
 the step looks up through, the edge teleport and the terrain curriculum.
 With ``cfg.world`` enabled, every physics call also pushes the robot out
-of the 4 walls of a corridor around its env origin (:mod:`.world`).
-Height sensing on a mesh and MJCF assets raise ``NotImplementedError``.
+of the 4 walls of a corridor around its env origin (:mod:`.world`). With
+``terrain.measure_heights`` the env senses the terrain grid's height under
+a yaw-rotated grid of points around every base (the min-of-3 rule, through
+a P x P window around the base as the JAX package's patch reads it) and
+observes and rewards it. The asset is a URDF or an MJCF (``.xml``) file.
+
+Physics (``sim.physics_impl``): ``auto``, ``soa`` and ``pallas`` take the
+limb-batched step :func:`..ops.cuda_physics.physics_step_cuda` (the CUDA
+kernel on the card, its plain version on the CPU; the JAX package's SoA
+step and Pallas kernel compute the same chain). ``aos`` takes the general
+step :func:`..ops.physics.physics_step`, plain PyTorch on either device.
+A tree with no limb layout takes ``aos`` whatever is asked, as in the JAX
+package. Unlike the JAX package, ``auto`` on the CPU is not ``aos``: JAX
+picks the AoS step there for its compile time, which eager PyTorch does not
+have.
 """
 
 from __future__ import annotations
@@ -28,15 +39,20 @@ import torch
 
 from .. import ROOT_DIR
 from ..config import Cfg, Derived, derive
-from ..models import RobotModel, load_urdf
+from ..models import RobotModel, load_mjcf, load_urdf
 from ..ops import quat as Q
-from ..ops.contact import TerrainGrid, blocked_window, square_window
+from ..ops.contact import (TerrainGrid, blocked_window, square_window,
+                           terrain_height_min3, terrain_height_min3_patch)
 from ..ops.cuda_physics import physics_step_cuda
 from ..ops.dynamics import PhysParams, SimState
+from ..ops.limb_dynamics import layout_for
+from ..ops.physics import physics_step
 from . import curriculum as curr
 from . import rewards as R
 from .terrain import Terrain
-from .world import WorldBoxes, default_corridor
+from .world import WorldBoxes, box_sphere_forces, default_corridor
+
+PHYSICS_IMPLS = ("auto", "pallas", "soa", "aos")
 
 
 def get_scale_shift(rng):
@@ -131,11 +147,13 @@ class LeggedRobotEnv:
                 cfg.world.wall_thickness)
         asset_path = cfg.asset.file.format(ROOT=ROOT_DIR)
         if asset_path.endswith(".xml"):
-            raise NotImplementedError("MJCF assets are not ported yet")
-        self.model: RobotModel = load_urdf(
-            asset_path, armature=cfg.asset.armature,
-            mesh_sphere_fit=cfg.asset.mesh_sphere_fit)
+            self.model: RobotModel = load_mjcf(asset_path,
+                                               armature=cfg.asset.armature)
+        else:
+            self.model = load_urdf(asset_path, armature=cfg.asset.armature,
+                                   mesh_sphere_fit=cfg.asset.mesh_sphere_fit)
         m = self.model
+        self.physics_impl = self._physics_impl()
         self.num_dof = m.nv
         self.num_actions = cfg.env.num_actions
         self.num_obs = cfg.env.num_observations
@@ -186,31 +204,43 @@ class LeggedRobotEnv:
         tc = cfg.terrain
         self.custom_origins = tc.mesh_type in ("heightfield", "trimesh")
         self.collision_grid: Optional[TerrainGrid] = None
+        self.terrain_grid: Optional[TerrainGrid] = None
         self._window = None
         if self.custom_origins:
-            if tc.measure_heights:
-                raise NotImplementedError(
-                    "height sensing on a terrain mesh is not ported yet")
             self.terrain = Terrain(tc, self.num_train_envs, None,
                                    self.num_eval_envs, seed=cfg.seed)
+            raw = lambda: self.terrain.as_grid(  # noqa: E731
+                tc.static_friction, tc.dynamic_friction, tc.restitution,
+                device=self.device)
             if tc.mesh_type == "trimesh":
                 # contact collides the slope-corrected surface: steep faces
-                # are walls, as on the reference's trimesh
+                # are walls, as on the reference's trimesh; height sensing
+                # reads the raw grid, as the reference's heightsamples
                 self.collision_grid = self.terrain.as_collision_grid(
                     tc.static_friction, tc.dynamic_friction, tc.restitution,
                     upsample=getattr(tc, "collision_upsample", 1),
                     slope_threshold=tc.slope_treshold, device=self.device)
+                if tc.measure_heights:
+                    self.terrain_grid = raw()
             else:
-                self.collision_grid = self.terrain.as_grid(
-                    tc.static_friction, tc.dynamic_friction, tc.restitution,
-                    device=self.device)
+                self.collision_grid = self.terrain_grid = raw()
             self.terrain_origins = self._t(tc.env_origins)  # [rows,cols,3]
-            self._window = self._window_rule()
+            if self.physics_impl != "aos":   # the AoS step takes no window
+                self._window = self._window_rule()
+        self.height_points = None
+        self._sense_patch_P = 0
         if cfg.terrain.measure_heights:
             gx, gy = np.meshgrid(np.asarray(cfg.terrain.measured_points_x),
                                  np.asarray(cfg.terrain.measured_points_y),
                                  indexing="ij")
+            pts = np.stack([gx.ravel(), gy.ravel(), np.zeros(gx.size)], -1)
+            self.height_points = self._t(pts)            # [nhp, 3]
             self.num_height_points = gx.size
+            # the window of the sensing patch: the yaw-rotated point grid's
+            # radius plus slack, rounded up to a multiple of 8 cells
+            r = float(np.max(np.linalg.norm(pts[:, :2], axis=-1)))
+            cells = int(np.ceil(r / cfg.terrain.horizontal_scale)) + 3
+            self._sense_patch_P = max(8, -(-2 * cells // 8) * 8)
         else:
             self.num_height_points = 1   # placeholder column (zeros)
 
@@ -245,6 +275,32 @@ class LeggedRobotEnv:
 
     def _t(self, x) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x, np.float32), device=self.device)
+
+    def _physics_impl(self) -> str:
+        """``aos`` for the general step, else ``soa`` (the limb-batched
+        step: K1 on the card, its plain version on the CPU)."""
+        impl = getattr(self.cfg.sim, "physics_impl", "auto")
+        if impl not in PHYSICS_IMPLS:
+            raise ValueError(f"unknown physics_impl {impl!r}, not one of "
+                             f"{PHYSICS_IMPLS}")
+        if impl != "aos" and layout_for(self.model) is None:
+            print(f"physics: {self.model.name} has no limb layout; "
+                  f"physics_impl {impl!r} -> 'aos' (the general step), as "
+                  f"in the JAX package")
+            impl = "aos"
+        return "aos" if impl == "aos" else "soa"
+
+    def _world_contact(self, origin, pos, vel, m_eff, dt):
+        """The world boxes' penalty forces on the spheres for the AoS
+        step (its ``extra_contact`` hook) at the terrain's friction."""
+        sim = self.cfg.sim
+        return box_sphere_forces(
+            self.world_boxes, origin, pos, vel,
+            torch.as_tensor(np.asarray(self.model.geom_radius, np.float32),
+                            device=pos.device), m_eff,
+            stiffness=sim.contact_stiffness, damping=sim.contact_damping,
+            friction=self.cfg.terrain.static_friction,
+            friction_vel_eps=sim.friction_vel_eps, dt=dt)
 
     def _origin_of(self, levels, types):
         """Origins of cells (level, type); indices past the last row or
@@ -489,6 +545,35 @@ class LeggedRobotEnv:
         return torch.clamp(tau, -self.torque_limits, self.torque_limits), target
 
     # ------------------------------------------------------------------
+    def _height_points_world(self, sim: SimState) -> torch.Tensor:
+        """World positions [N, nhp, 3] of the sample grid, turned with each
+        base's yaw and moved to its position."""
+        pts = Q.quat_apply_yaw(sim.base_quat[:, None, :],
+                               self.height_points[None, :, :])
+        return pts + sim.base_pos[:, None, :]
+
+    def _get_heights(self, sim: SimState) -> torch.Tensor:
+        """Terrain heights [N, nhp] under the yaw-rotated sample grid around
+        every base, by the min-of-3 rule on the terrain grid (zeros on the
+        plane). Through each env's P x P window around its base where the
+        JAX package reads a patch (terrain_patch_size set, the "mm" lookup,
+        the grid at least P cells each way), else directly."""
+        grid = self.terrain_grid
+        if not self.cfg.terrain.measure_heights or grid is None:
+            return torch.zeros((self.num_envs, self.num_height_points),
+                               device=self.device)
+        pts = self._height_points_world(sim)
+        P = self._sense_patch_P
+        simc = self.cfg.sim
+        if (getattr(simc, "terrain_patch_size", 0)
+                and getattr(simc, "terrain_lookup", "mm") == "mm"
+                and P and min(grid.height.shape) >= P):
+            return terrain_height_min3_patch(
+                grid, sim.base_pos[:, 0], sim.base_pos[:, 1],
+                pts[..., 0], pts[..., 1], P)
+        return terrain_height_min3(grid, pts[..., 0], pts[..., 1])
+
+    # ------------------------------------------------------------------
     def _observe(self, state: EnvState, sampler, stream):
         """Observations + privileged observations."""
         cfg = self.cfg
@@ -570,6 +655,13 @@ class LeggedRobotEnv:
 
     def _phys(self, sim, torques, phys_params, imp, window, origins):
         walls = self.world_boxes is not None
+        if self.physics_impl == "aos":
+            return physics_step(
+                self.model, self.cfg.sim, sim, torques, phys_params,
+                terrain=self.collision_grid,
+                fixed_base=self.cfg.asset.fix_base_link, implicit_damp=imp,
+                extra_contact=self._world_contact if walls else None,
+                env_origin=origins if walls else None)
         return physics_step_cuda(
             self.model, self.cfg.sim, sim, torques, phys_params,
             terrain=self.collision_grid,
@@ -709,8 +801,10 @@ class LeggedRobotEnv:
             Kp_factors=_w(rand_mask, kpf, dr.Kp_factors),
             Kd_factors=_w(rand_mask, kdf, dr.Kd_factors))
 
-        # ---- height sensing: only the plane (heights 0) is ported ----------
-        measured_heights = state.measured_heights
+        # ---- height sensing ----------------------------------------------
+        measured_heights = (self._get_heights(sim)
+                            if cfg.terrain.measure_heights
+                            else state.measured_heights)
 
         # ---- termination --------------------------------------------------
         term_f = report[:, list(self.termination_contact_indices), :]

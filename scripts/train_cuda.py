@@ -4,6 +4,7 @@ scripts/train.py, same flags, defaults and config overrides).
     python scripts/train_cuda.py [--robot mini_cheetah|go1] [--num-envs 4000]
                                  [--iterations 4000] [--logdir runs/...]
                                  [--resume .../train_state_last.pkl]
+                                 [--physics-impl auto|soa|aos]
                                  [--device cuda|cpu]
 
 The Runner trains the teacher-student PPO policy at 24 steps per env and
@@ -14,13 +15,14 @@ by the JAX package (params, both Adam states, the adaptive LR, the env
 state with its command curriculum, the iteration and the step count).
 The physics runs as the CUDA kernel on the card (``--device cuda``, the
 default; the script raises when no card is visible) or as its plain
-PyTorch version on the CPU (``--device cpu``).
+PyTorch version on the CPU (``--device cpu``). ``--physics-impl aos`` runs
+the general (body by body) step instead, plain PyTorch on either device;
+``auto`` and ``soa`` (and a config's ``pallas``) keep the kernel.
 
 Every 400 iterations the Runner renders env 0's poses of the last
 rollouts into ``videos/{it:05d}.gif`` (with Pillow), and each checkpoint
 exports the student policy as ``student_policy_latest.pt2`` beside its
-params. Three flags of scripts/train.py are left out: ``--physics-impl``
-(a choice among the JAX package's physics back ends), ``--mesh`` and
+params. Two flags of scripts/train.py are left out, ``--mesh`` and
 ``--distributed`` (sharding over several chips and processes); the port
 runs on one card.
 """
@@ -73,6 +75,10 @@ def parse_args(argv=None):
     ap.add_argument("--randomized-spawn", action="store_true",
                     help="legged_gym-style reset randomization (dof "
                          "0.5-1.5x default, root vel +-0.5)")
+    ap.add_argument("--physics-impl", default=None,
+                    choices=["auto", "soa", "aos"],
+                    help="override cfg.sim.physics_impl (aos: the general "
+                         "step, plain PyTorch; auto/soa: the kernel)")
     ap.add_argument("--deterministic-spawn", action="store_true",
                     help="reset exactly at the default pose with zero root "
                          "velocity")
@@ -108,6 +114,8 @@ def make_cfg(args):
     if args.randomized_spawn:
         cfg.init_state.dof_init_range = [0.5, 1.5]
         cfg.init_state.randomize_root_vel = True
+    if args.physics_impl is not None:
+        cfg.sim.physics_impl = args.physics_impl
     if args.substeps is not None:
         cfg.sim.num_substeps = args.substeps
     if args.implicit_pd is not None:

@@ -25,12 +25,14 @@ import chip_smoke
 import rapid_locomotion_rl_tpu_torch
 from rapid_locomotion_rl_tpu_torch import config, convert, sampler
 from rapid_locomotion_rl_tpu_torch.envs import (curriculum, hlp,
-    legged_robot, rewards, terrain, world)
+    legged_robot, rewards, terrain, terrain_native, vec_env, world)
 from rapid_locomotion_rl_tpu_torch.learn import (caches, dr_eval, metrics,
-    ppo, runner)
-from rapid_locomotion_rl_tpu_torch.models import networks, robot_model, urdf
+    ppo, runner, trajectories)
+from rapid_locomotion_rl_tpu_torch.models import (mjcf, networks,
+    robot_model, urdf)
 from rapid_locomotion_rl_tpu_torch.ops import (contact, cuda_physics,
-    dynamics, limb_dynamics, physics, quat, soa, soa_physics, world)
+    dynamics, limb_dynamics, physics, quat, soa, soa_physics, spatial,
+    world)
 from rapid_locomotion_rl_tpu_torch.utils import (checkpoint, debug, logger,
     raster, render)
 for name in sorted(os.listdir("scripts")):
@@ -45,6 +47,14 @@ bad = sorted(m for m in sys.modules
                               "rapid_locomotion_rl_tpu.")))
 print("BAD", bad)
 """
+
+
+def test_every_port_module_is_probed():
+    """PROBE imports every module of the package."""
+    mods = {os.path.splitext(f)[0] for d, _, fs in os.walk(PORT)
+            for f in fs if f.endswith(".py") and f != "__init__.py"}
+    names = set(re.findall(r"\b\w+\b", PROBE))
+    assert mods <= names, sorted(mods - names)
 
 
 def test_port_imports_no_jax():

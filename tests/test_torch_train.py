@@ -2,10 +2,11 @@
 port's Runner on the legged env) against scripts/train.py and the JAX
 package's Runner and update.
 
-- train_cuda.py has every flag of train.py but the three that choose
-  among JAX back ends and shard over chips (--physics-impl, --mesh,
-  --distributed), with the same defaults, types and choices, and one of
-  its own, --device.
+- train_cuda.py has every flag of train.py but the two that shard over
+  chips (--mesh, --distributed), with the same defaults, types and choices
+  (--physics-impl among them), and one of its own, --device.
+- A 1-iteration ``--device cpu --physics-impl aos`` run on the same small
+  config goes through the general physics step only, finite.
 - A 2-iteration ``--device cpu`` run on a small trimesh config (2 x 3
   cells, 16 envs, one substep and decimation 1, 0.1 s episodes so that
   every env resets) writes exactly the metric keys of
@@ -47,7 +48,7 @@ from rapid_locomotion_rl_tpu_torch.utils.checkpoint import load_pytree
 
 RUN = os.path.join(RLTPU_ROOT_DIR, "runs", "r5_flagship")
 STATE = os.path.join(RUN, "checkpoints", "train_state_last.pkl")
-LEFT_OUT = {"--physics-impl", "--mesh", "--distributed"}
+LEFT_OUT = {"--mesh", "--distributed"}
 
 
 def _script(name):
@@ -195,6 +196,36 @@ def _cadence(runner, set_train_iter, n=4, start=298):
     runner.learn(n, init_at_random_ep_len=True, eval_freq=100)
     assert runner.current_learning_iteration == start + n
     return events, seen[0]
+
+
+def test_cpu_run_with_the_general_physics(tmp_path, monkeypatch):
+    """One iteration with ``--physics-impl aos``: the env takes the general
+    step (and no window), every physics call goes through it and none
+    through the limb-batched step, losses and params finite."""
+    from rapid_locomotion_rl_tpu_torch.envs import legged_robot as TLR
+    calls = {"aos": 0, "soa": 0}
+    aos, soa = TLR.physics_step, TLR.physics_step_cuda
+
+    def count(name, fn):
+        def wrapped(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return wrapped
+    monkeypatch.setattr(TLR, "physics_step", count("aos", aos))
+    monkeypatch.setattr(TLR, "physics_step_cuda", count("soa", soa))
+    runner = _small_script().main(SMALL + [
+        "--physics-impl", "aos", "--iterations", "1", "--logdir",
+        str(tmp_path)])
+    env = runner.env
+    assert env.cfg.sim.physics_impl == "aos" and env.physics_impl == "aos"
+    assert env._window is None
+    assert calls["soa"] == 0 and calls["aos"] >= 24
+    m = runner.last_metrics
+    for k in ("mean_value_loss", "mean_surrogate_loss", "kl", "lr"):
+        assert np.isfinite(m[k]), k
+    assert all(torch.isfinite(p).all() for p in runner.ac.parameters())
+    for v in runner.env_state.sim:
+        assert torch.isfinite(v).all()
 
 
 def test_entropy_ramp_and_cadence_match_jax_runner(monkeypatch, tmp_path):

@@ -250,3 +250,118 @@ def near_walls(state, seed, lift=None):
     if lift is not None:
         pos[:, 2] = lift
     return dict(state, base_pos=pos.astype(np.float32)), origins
+
+
+def mc_env_step(edit):
+    """One env step of each package from one JAX initial state:
+    config_mini_cheetah cut as tests/test_torch_env_trimesh.py cuts it (64
+    envs, 2 x 2 trimesh cells, decimation 2, no observation noise), then
+    ``edit(cfg)`` on both configs. Contact collides with that test's wavy
+    surface; the terrain grid that height sensing reads is a second,
+    different surface (twice the waves, 1 cm up), so a sensor that read the
+    collision grid would show. The state is prepared as there: envs 0-7
+    time out (0-3 far enough from their origin to move up a level), envs
+    8-13 sit near the edges and teleport, every base stands 0.29 m above
+    the collision surface; the terrain-level and reset-spawn draws are
+    replayed from JAX's key. The JAX step runs jitted.
+
+    Returns ((JAX env, state, new state, result, reward terms), (port env,
+    new state, result, reward terms))."""
+    import jax
+    import jax.numpy as jnp
+    from rapid_locomotion_rl_tpu.envs.legged_robot import \
+        LeggedRobotEnv as JEnv
+    from rapid_locomotion_rl_tpu.ops.contact import TerrainGrid as JGrid
+    from rapid_locomotion_rl_tpu_torch.convert import env_state_from_jax
+    from rapid_locomotion_rl_tpu_torch.envs.legged_robot import \
+        LeggedRobotEnv
+    from rapid_locomotion_rl_tpu_torch.ops.contact import (
+        TerrainGrid, terrain_height_bilinear)
+    from test_torch_env_trimesh import (NT, ReplaySampler, _jax_draws,
+                                        _mc_cfgs, _wavy)
+    jc, tc = _mc_cfgs()
+    for c in (jc, tc):
+        edit(c)
+    jenv, tenv = JEnv(jc), LeggedRobotEnv(tc, device="cpu")
+    for attr, gain, lift in (("collision_grid", 1.0, 0.0),
+                             ("terrain_grid", 2.0, 0.01)):
+        g = getattr(tenv, attr)
+        if g is None:           # the port builds the raw grid to sense
+            continue
+        h = gain * _wavy(g.height.shape, g.horizontal_scale,
+                         g.border_size) + np.float32(lift)
+        meta = dict(horizontal_scale=g.horizontal_scale,
+                    border_size=g.border_size,
+                    static_friction=g.static_friction,
+                    dynamic_friction=g.dynamic_friction,
+                    restitution=g.restitution)
+        setattr(jenv, attr, JGrid(height=jnp.asarray(h), **meta))
+        setattr(tenv, attr, TerrainGrid(height=torch.tensor(h), **meta))
+    if jenv._col_blocks is not None:
+        from rapid_locomotion_rl_tpu.ops.contact import make_col_blocks
+        jenv._col_blocks = make_col_blocks(jenv.collision_grid)
+
+    jstate = jenv.initial_state(jax.random.PRNGKey(4))
+    s = jax.tree.map(np.asarray, jstate)
+    pos = s.sim.base_pos.copy()
+    origins = s.env_origins
+    ep = s.episode_length.copy()
+    ep[:8] = jenv.derived.max_episode_length
+    pos[:4, 0] = origins[:4, 0] + np.where(origins[:4, 0] < 8.0, 4.5, -4.5)
+    pos[:4, 1] = origins[:4, 1]
+    pos[8:11, 0] = 1.5
+    pos[11:14, 1] = 14.5
+    pos[:, 2] = 0.29 + terrain_height_bilinear(
+        tenv.collision_grid, torch.tensor(pos[:, 0]),
+        torch.tensor(pos[:, 1])).numpy()
+    jstate = jstate._replace(
+        sim=jstate.sim._replace(base_pos=jnp.asarray(pos)),
+        episode_length=jnp.asarray(ep))
+    tstate = env_state_from_jax(jax.tree.map(np.asarray, jstate),
+                                device="cpu")
+    a = np.random.default_rng(7).normal(0, 0.5, (NT, 12)).astype(np.float32)
+    sampler = ReplaySampler(7, _jax_draws(jenv, jstate))
+    jnew, jres = jax.jit(jenv.step)(jstate, jnp.asarray(a))
+    jterms = jax.jit(jenv.reward_terms)(jnew)
+    tnew, tres = tenv.step(tstate, torch.tensor(a), sampler)
+    return ((jenv, jstate, jnew, jres, jterms),
+            (tenv, tnew, tres, tenv.reward_terms(tnew)))
+
+
+def assert_env_step_close(jax_side, port_side, rows=None):
+    """Every field that tests/test_torch_env_trimesh.py checks, at its
+    tolerances: dones, time-outs, levels and origins exactly; sim state
+    1e-4; contact forces 1e-3/1e-2 where no reset; obs, privileged obs and
+    rewards 1e-4, reward terms 1e-4/1e-6 on the envs that did not reset
+    (and, with ``rows`` [N] bool, only on those rows)."""
+    _, jold, jnew, jres, jterms = jax_side
+    _, tnew, tres, tterms = port_side
+    done = np.asarray(jres.done)
+    assert done[:8].all(), "envs 0-7 should time out"
+    np.testing.assert_array_equal(tres.done.numpy(), done)
+    np.testing.assert_array_equal(tres.info["time_outs"].numpy(),
+                                  np.asarray(jres.info["time_outs"]))
+    np.testing.assert_array_equal(tnew.terrain_levels.numpy(),
+                                  np.asarray(jnew.terrain_levels))
+    np.testing.assert_array_equal(tnew.env_origins.numpy(),
+                                  np.asarray(jnew.env_origins))
+    assert np.abs(np.asarray(jnew.contact_report)).max() > 1.0
+    for name in STATE_FIELDS:
+        np.testing.assert_allclose(getattr(tnew.sim, name).numpy(),
+                                   np.asarray(getattr(jnew.sim, name)),
+                                   rtol=1e-4, atol=1e-4, err_msg=name)
+    keep = ~done
+    np.testing.assert_allclose(tnew.contact_report.numpy()[keep],
+                               np.asarray(jnew.contact_report)[keep],
+                               rtol=1e-3, atol=1e-2)
+    if rows is not None:
+        keep = keep & rows
+    for field in ("obs", "privileged_obs", "rew"):
+        np.testing.assert_allclose(getattr(tres, field).numpy()[keep],
+                                   np.asarray(getattr(jres, field))[keep],
+                                   rtol=1e-4, atol=1e-4, err_msg=field)
+    assert set(jterms) == set(tterms)
+    for name in jterms:
+        np.testing.assert_allclose(tterms[name].numpy()[keep],
+                                   np.asarray(jterms[name])[keep],
+                                   rtol=1e-4, atol=1e-6, err_msg=name)
