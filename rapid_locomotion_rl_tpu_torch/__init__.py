@@ -2,7 +2,7 @@
 
 The JAX package beside it stays the reference. This package keeps its
 module names (``config``, ``models/``, ``ops/``, ``envs/``, ``learn/``,
-``utils/``) and imports ``torch`` and ``numpy`` only. The physics step runs
+``parallel/``, ``utils/``) and imports ``torch`` and ``numpy`` only. The physics step runs
 as one hand-written CUDA kernel (``csrc/``, bound in
 ``ops/cuda_physics.py``) for tensors on the card, and as its plain PyTorch
 version (``ops/soa_physics.py``) for tensors on the CPU.

@@ -45,9 +45,11 @@
 // faster than one thread per env). rl_physics_step_occupancy reports the
 // instance's figures; chip_smoke.py's build phase prints them.
 //
-// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-// -Xcompiler -fPIC --fmad=false (no fused multiply-add, so that the kernel
-// rounds like its plain PyTorch version). No PyTorch header is included:
+// Build (one library per variant, see RL_CARD_VARIANTS): nvcc -gencode
+// arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
+// --fmad=false -DRL_D=3 -DRL_K=4 -DRL_TER=1 -DRL_WLD=0 -DRL_LEG=0 -DRL_FIX=0
+// (no fused multiply-add, so that the kernel rounds like its plain PyTorch
+// version). No PyTorch header is included:
 // the library has a plain C interface, loaded with ctypes.
 #include <cuda_runtime.h>
 
@@ -149,29 +151,51 @@ static cudaError_t occupancy(int cst_len, int* out) {
   return cudaSuccess;
 }
 
-// Only the variants the env runs are built for the card: the quadruped limb
-// layout D x K = 3 x 4 with the implicit-PD input (zeros when implicit PD is
-// off), on the plane (Go1), on terrain (Mini Cheetah, trimesh), on terrain
-// with the world boxes (the HLP corridor), on terrain with the legacy
-// contact model, and on terrain with the legacy contact model and a fixed
-// base (a fixed base comes only with the legacy model: see
-// substep_chain.cuh). Any other variant is refused with
-// cudaErrorInvalidValue; physics_step_host.cpp builds every variant for the
-// CPU tests. OP is launch or occupancy, with its trailing arguments.
+// Every variant of JAX's kernel is built for the card, for both limb layouts
+// in the repo (the quadruped's D x K = 3 x 4 and the test hopper's 1 x 2):
+// on the plane or terrain, with or without the world boxes, with the
+// apparent or the legacy contact model, and with the legacy model also a
+// fixed base (a fixed base under the apparent model is NaN in the plain
+// version and refused by it). Every instance takes the implicit-damping
+// input: a caller without one packs zeros, which give the bits of the
+// instance without it (tests/test_torch_kernel_host.py holds that on the g++
+// build). One library is built per variant, each from this file with
+// -DRL_D -DRL_K -DRL_TER -DRL_WLD -DRL_LEG -DRL_FIX, so that the builds run in
+// parallel and a run builds only what it launches; a library refuses any
+// other variant with cudaErrorInvalidValue. RL_CARD_VARIANTS is the table of
+// them (ops/cuda_physics.py::CUDA_VARIANTS holds the same, in this order):
+// X(D, K, TER, WLD, LEG, FIX).
+#define RL_CARD_VARIANTS(X)                                                    \
+  X(3, 4, 0, 0, 0, 0) X(3, 4, 0, 0, 1, 0) X(3, 4, 0, 0, 1, 1)                  \
+  X(3, 4, 0, 1, 0, 0) X(3, 4, 0, 1, 1, 0) X(3, 4, 0, 1, 1, 1)                  \
+  X(3, 4, 1, 0, 0, 0) X(3, 4, 1, 0, 1, 0) X(3, 4, 1, 0, 1, 1)                  \
+  X(3, 4, 1, 1, 0, 0) X(3, 4, 1, 1, 1, 0) X(3, 4, 1, 1, 1, 1)                  \
+  X(1, 2, 0, 0, 0, 0) X(1, 2, 0, 0, 1, 0) X(1, 2, 0, 0, 1, 1)                  \
+  X(1, 2, 0, 1, 0, 0) X(1, 2, 0, 1, 1, 0) X(1, 2, 0, 1, 1, 1)                  \
+  X(1, 2, 1, 0, 0, 0) X(1, 2, 1, 0, 1, 0) X(1, 2, 1, 0, 1, 1)                  \
+  X(1, 2, 1, 1, 0, 0) X(1, 2, 1, 1, 1, 0) X(1, 2, 1, 1, 1, 1)
+
+#if !defined(RL_D) || !defined(RL_K) || !defined(RL_TER) || !defined(RL_WLD) \
+    || !defined(RL_LEG) || !defined(RL_FIX)
+#error "build one variant: -DRL_D= -DRL_K= -DRL_TER= -DRL_WLD= -DRL_LEG= -DRL_FIX="
+#endif
+#define RL_IS_BUILT(D, K, TER, WLD, LEG, FIX)                                  \
+  || (D == RL_D && K == RL_K && TER == RL_TER && WLD == RL_WLD                 \
+      && LEG == RL_LEG && FIX == RL_FIX)
+static_assert(false RL_CARD_VARIANTS(RL_IS_BUILT),
+              "not a variant of RL_CARD_VARIANTS");
+
+// OP is launch or occupancy, with its trailing arguments.
 #define RL_DISPATCH(OP, ...)                                                   \
-  if (D != 3 || K != 4 || !has_imp || (has_world && !has_terrain)              \
-      || ((legacy || fixed_base) && (!has_terrain || has_world))               \
-      || (fixed_base && !legacy))                                              \
+  if (D != RL_D || K != RL_K || has_terrain != RL_TER || has_world != RL_WLD   \
+      || legacy != RL_LEG || fixed_base != RL_FIX)                             \
     return (int)cudaErrorInvalidValue;                                         \
-  if (fixed_base) return (int)OP<3, 4, true, true, false, true, true>(__VA_ARGS__);   \
-  if (legacy) return (int)OP<3, 4, true, true, false, true, false>(__VA_ARGS__);      \
-  if (has_world) return (int)OP<3, 4, true, true, true, false, false>(__VA_ARGS__);   \
-  return has_terrain ? (int)OP<3, 4, true, true, false, false, false>(__VA_ARGS__)    \
-                     : (int)OP<3, 4, true, false, false, false, false>(__VA_ARGS__);
+  return (int)OP<RL_D, RL_K, true, (bool)RL_TER, (bool)RL_WLD, (bool)RL_LEG,   \
+                 (bool)RL_FIX>(__VA_ARGS__);
 
 // Returns the cudaError_t of the launch (0 = launched).
 extern "C" int rl_physics_step(const float* x, float* y, const float* cst,
-                               int cst_len, int n, int D, int K, int has_imp,
+                               int cst_len, int n, int D, int K,
                                int has_terrain, int has_world, int legacy,
                                int fixed_base, void* stream) {
   if (n <= 0 || cst_len <= 0) return (int)cudaErrorInvalidValue;
@@ -195,9 +219,9 @@ extern "C" int rl_phase_clocks(long long* out) {
 
 // Fills out[6] (see occupancy) for a variant and a table of cst_len floats.
 extern "C" int rl_physics_step_occupancy(int cst_len, int D, int K,
-                                         int has_imp, int has_terrain,
-                                         int has_world, int legacy,
-                                         int fixed_base, int* out) {
+                                         int has_terrain, int has_world,
+                                         int legacy, int fixed_base,
+                                         int* out) {
   if (cst_len <= 0) return (int)cudaErrorInvalidValue;
   RL_DISPATCH(occupancy, cst_len, out)
 }

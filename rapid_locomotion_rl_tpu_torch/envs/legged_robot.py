@@ -19,6 +19,16 @@ a yaw-rotated grid of points around every base (the min-of-3 rule, through
 a P x P window around the base as the JAX package's patch reads it) and
 observes and rewards it. The asset is a URDF or an MJCF (``.xml``) file.
 
+Data parallelism (:mod:`..parallel.sharding`): after
+:meth:`LeggedRobotEnv.shard_env_axis` the env holds one rank's rows of the
+env axis (``num_envs`` and the train/eval counts become the rank's,
+``shard`` holds the global ones), draws through a
+:class:`..parallel.sharding.ShardedSampler`, gathers the command
+curriculum's inputs to global order before its update, and reports its
+step metrics as this rank's share of the global sums and means (the
+rollout's aggregation all-reduces them; ``REPLICATED_INFO`` are the same
+on every rank).
+
 Physics (``sim.physics_impl``): ``auto``, ``soa`` and ``pallas`` take the
 limb-batched step :func:`..ops.cuda_physics.physics_step_cuda` (the CUDA
 kernel on the card, its plain version on the CPU; the JAX package's SoA
@@ -47,6 +57,7 @@ from ..ops.cuda_physics import physics_step_cuda
 from ..ops.dynamics import PhysParams, SimState
 from ..ops.limb_dynamics import layout_for
 from ..ops.physics import physics_step
+from ..parallel import sharding as SH
 from . import curriculum as curr
 from . import rewards as R
 from .terrain import Terrain
@@ -126,6 +137,9 @@ class LeggedRobotEnv:
     ``device`` defaults to ``cuda``; pass ``device="cpu"`` to run the plain
     physics step on the CPU."""
 
+    # step metrics that every rank computes whole (the rest are its share)
+    REPLICATED_INFO = ("train/episode/command_area",)
+
     def __init__(self, cfg: Cfg, device="cuda"):
         self.cfg = cfg
         self.device = torch.device(device)
@@ -133,6 +147,7 @@ class LeggedRobotEnv:
         self.num_envs = cfg.env.num_envs
         self.num_train_envs = self.derived.num_train_envs
         self.num_eval_envs = self.derived.num_eval_envs
+        self.shard: Optional[SH.EnvShard] = None   # all envs in one process
         self.dt = self.derived.dt
 
         if cfg.terrain.mesh_type not in ("plane", "none", "heightfield",
@@ -276,6 +291,35 @@ class LeggedRobotEnv:
     def _t(self, x) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x, np.float32), device=self.device)
 
+    # ---- data parallelism ---------------------------------------------
+    def shard_env_axis(self, mesh: SH.Mesh) -> SH.EnvShard:
+        """Hold one rank's rows of the env axis from now on: ``num_envs``,
+        ``num_train_envs`` and ``num_eval_envs`` become the rank's; the
+        global counts stay in the returned ``shard``."""
+        if self.shard is not None:
+            raise RuntimeError("the env axis is already sharded")
+        shard = SH.EnvShard(mesh, self.num_envs, self.num_train_envs)
+        self.shard = shard
+        self.num_envs = shard.local
+        self.num_train_envs = shard.local_train
+        self.num_eval_envs = shard.local - shard.local_train
+        return shard
+
+    def train_mask(self) -> torch.Tensor:
+        """[N] bool: the envs this process holds that train (the others
+        are eval envs, the last of the global env axis)."""
+        if self.shard is None:
+            return (torch.arange(self.num_envs, device=self.device)
+                    < self.num_train_envs)
+        return self.shard.index(self.device) < self.shard.num_train_envs
+
+    def _mean_all(self, x: torch.Tensor) -> torch.Tensor:
+        """The mean of an [N] tensor over all envs: whole in one process,
+        else this rank's share of it (its sum over the global count)."""
+        if self.shard is None:
+            return torch.mean(x)
+        return torch.sum(x) / self.shard.num_envs
+
     def _physics_impl(self) -> str:
         """``aos`` for the general step, else ``soa`` (the limb-batched
         step: K1 on the card, its plain version on the CPU)."""
@@ -371,6 +415,10 @@ class LeggedRobotEnv:
         origin of a cell (level row, type column), the levels drawn and the
         types spread evenly over the columns; on the plane a square grid."""
         N = self.num_envs
+        # the types and the plane's grid follow the global env index
+        N_all, mine = ((N, slice(None)) if self.shard is None else
+                       (self.shard.num_envs,
+                        slice(self.shard.lo, self.shard.hi)))
         tc = self.cfg.terrain
         if self.custom_origins:
             min_lvl, max_lvl = (tc.min_init_terrain_level,
@@ -379,20 +427,21 @@ class LeggedRobotEnv:
                 min_lvl, max_lvl = 0, tc.num_rows - 1
             levels = sampler.integers("terrain/init_levels", (N,), min_lvl,
                                       max_lvl + 1).to(torch.int32)
-            types = np.floor_divide(np.arange(N, dtype=np.float32),
-                                    np.float32(max(N / tc.num_cols, 1)))
-            types = torch.as_tensor(types.astype(np.int32) % tc.num_cols,
-                                    device=self.device)
+            types = np.floor_divide(np.arange(N_all, dtype=np.float32),
+                                    np.float32(max(N_all / tc.num_cols, 1)))
+            types = torch.as_tensor(
+                types.astype(np.int32)[mine] % tc.num_cols,
+                device=self.device)
             return self._origin_of(levels, types), levels, types
         spacing = self.cfg.env.env_spacing
-        cols = int(np.floor(np.sqrt(N)))
-        rows = int(np.ceil(N / cols))
+        cols = int(np.floor(np.sqrt(N_all)))
+        rows = int(np.ceil(N_all / cols))
         xx, yy = np.meshgrid(np.arange(rows), np.arange(cols), indexing="ij")
-        origins = np.zeros((N, 3), np.float32)
-        origins[:, 0] = spacing * xx.ravel()[:N]
-        origins[:, 1] = spacing * yy.ravel()[:N]
+        origins = np.zeros((N_all, 3), np.float32)
+        origins[:, 0] = spacing * xx.ravel()[:N_all]
+        origins[:, 1] = spacing * yy.ravel()[:N_all]
         zeros = torch.zeros(N, dtype=torch.int32, device=self.device)
-        return self._t(origins), zeros, zeros.clone()
+        return self._t(origins[mine]), zeros, zeros.clone()
 
     def _sample_rigid_body_props(self, sampler, n, stream):
         """friction/restitution/payload/CoM draw."""
@@ -847,8 +896,8 @@ class LeggedRobotEnv:
             rew_buf = rew_buf + term
             episode_sums[name] = episode_sums[name] + term
             command_sums[name] = command_sums[name] + term
-            rew_term_gauges[f"rew_terms/{name}"] = torch.mean(term)
-        raw_reward_mean = torch.mean(rew_buf)
+            rew_term_gauges[f"rew_terms/{name}"] = self._mean_all(term)
+        raw_reward_mean = self._mean_all(rew_buf)
         if cfg.rewards.only_positive_rewards:
             rew_buf = torch.clamp(rew_buf, min=0.0)
         episode_sums["total"] = episode_sums["total"] + rew_buf
@@ -876,7 +925,7 @@ class LeggedRobotEnv:
                          | apply_reset)
         if not cfg.env.auto_reset:
             resample_mask = torch.zeros_like(apply_reset)
-        train_mask = torch.arange(N, device=dev) < self.num_train_envs
+        train_mask = self.train_mask()
         cstate = state.curriculum
         commands = state.commands
         env_bins = state.env_command_bins
@@ -884,13 +933,23 @@ class LeggedRobotEnv:
             lin_rew = command_sums["tracking_lin_vel"] / self.curr_ep_len
             ang_rew = command_sums["tracking_ang_vel"] / self.curr_ep_len
             ts = torch.clamp(command_sums["ep_timesteps"], min=1.0)
+            inputs = (env_bins, lin_rew, ang_rew, resample_mask & train_mask,
+                      command_sums["lin_vel_raw"] / ts,
+                      command_sums["ang_vel_raw"] / ts,
+                      command_sums["ep_timesteps"])
+            if self.shard is not None:
+                # the replicated curriculum is updated from all envs, in
+                # global order, on every rank: one all-reduce of the
+                # columns (bins and mask are exact in float32)
+                cols = SH.gather_env_axis(
+                    torch.stack([c.float() for c in inputs], -1), self.shard)
+                inputs = (cols[:, 0].long(), cols[:, 1], cols[:, 2],
+                          cols[:, 3] > 0.5, *cols[:, 4:].unbind(-1))
+            bins_all, lin_all, ang_all, mask_all, lvr, avr, dur = inputs
             cstate = curr.update(
-                self.curriculum_grid, cstate, env_bins, lin_rew, ang_rew,
-                resample_mask & train_mask,
-                self.lin_vel_threshold, self.ang_vel_threshold,
-                lin_vel_raw=command_sums["lin_vel_raw"] / ts,
-                ang_vel_raw=command_sums["ang_vel_raw"] / ts,
-                ep_duration=command_sums["ep_timesteps"])
+                self.curriculum_grid, cstate, bins_all, lin_all, ang_all,
+                mask_all, self.lin_vel_threshold, self.ang_vel_threshold,
+                lin_vel_raw=lvr, ang_vel_raw=avr, ep_duration=dur)
             new_cmds, new_bins = curr.sample(
                 self.curriculum_grid, cstate, sampler, N, "resample")
             new_cmds = self._zero_small_commands(new_cmds)
@@ -934,8 +993,13 @@ class LeggedRobotEnv:
             info[f"eval/episode/rew_{k}/sum"] = torch.sum(
                 _w(reset_eval, episode_sums[k], 0.0))
         if cfg.terrain.curriculum:
-            info["train/episode/terrain_level"] = torch.mean(
-                terrain_levels[: self.num_train_envs].float())
+            if self.shard is None:
+                info["train/episode/terrain_level"] = torch.mean(
+                    terrain_levels[: self.num_train_envs].float())
+            else:
+                info["train/episode/terrain_level"] = torch.sum(
+                    terrain_levels[: self.num_train_envs].float()
+                ) / self.shard.num_train_envs
         if cfg.commands.command_curriculum:
             info["train/episode/command_area"] = (
                 torch.sum(cstate.weights) / cstate.weights.shape[0])
@@ -943,9 +1007,9 @@ class LeggedRobotEnv:
         info["time_outs"] = time_out_buf
         info["raw_reward_mean"] = raw_reward_mean
         info.update(rew_term_gauges)
-        info["done_rate"] = torch.mean(reset_buf.float())
-        info["ep_len_mean"] = torch.mean(episode_length.float())
-        info["cmd_norm_mean"] = torch.mean(
+        info["done_rate"] = self._mean_all(reset_buf.float())
+        info["ep_len_mean"] = self._mean_all(episode_length.float())
+        info["cmd_norm_mean"] = self._mean_all(
             torch.linalg.norm(commands[:, :2], dim=-1))
 
         for k in episode_sums:

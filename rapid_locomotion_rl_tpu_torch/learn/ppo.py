@@ -12,6 +12,16 @@
   its own Adam after each policy step;
 - :func:`train_iteration` composes them (JAX ``make_train_iteration``).
 
+On an env whose env axis is sharded over ranks (its ``shard``,
+:mod:`..parallel.sharding`) each rank rolls out its own envs, and every
+reduction over the batch is a sum all-reduced over the ranks: the
+advantage normalization, each minibatch's losses and KL (sums over the
+rank's share of the global minibatch over the global minibatch size) and
+their gradients before the global-norm clip, the adaptation loss and its
+gradients, the sysid residuals and the rollout's metrics. The KL that
+drives the learning rate is the global one, so every rank takes the same
+step and the parameters stay replicated.
+
 The parameters live in the :class:`ActorCritic` module and are updated in
 place; :class:`PPOState` carries the two optimizers and the learning rate.
 The JAX package runs one optax Adam over the whole tree whose gradients are
@@ -22,6 +32,7 @@ through the :class:`..sampler.Sampler`.
 
 from __future__ import annotations
 
+import math
 import time
 from dataclasses import dataclass
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
@@ -31,6 +42,7 @@ import torch
 
 from ..models.networks import (ActorCritic, normal_entropy, normal_kl,
                                normal_log_prob)
+from ..parallel import sharding as SH
 
 
 @dataclass
@@ -127,8 +139,12 @@ def rollout(env, ac: ActorCritic, ppo_args: PPOArgs, env_state, sampler,
         if env.num_eval_envs > 0:
             det = (ac.act_teacher(obs, priv) if eval_expert
                    else ac.act_student(obs, hist))
-            idx = torch.arange(obs.shape[0], device=obs.device)[:, None]
-            actions = torch.where(idx < n_train, sampled, det)
+            if hasattr(env, "train_mask"):
+                train = env.train_mask()[:, None]
+            else:
+                train = torch.arange(obs.shape[0],
+                                     device=obs.device)[:, None] < n_train
+            actions = torch.where(train, sampled, det)
         else:
             actions = sampled
 
@@ -193,23 +209,49 @@ def _adaptive_lr(lr: float, kl: float, ppo_args: PPOArgs) -> float:
     return float(lr)
 
 
+def _local_chunks(chunks: torch.Tensor, shard) -> list:
+    """For each minibatch of global flat indices (time-major over the
+    global train envs), the flat indices of the samples this rank holds
+    (time-major over its own train envs), in the minibatch's order."""
+    n_all, lo, n_loc = shard.num_train_envs, shard.lo, shard.local_train
+    out = []
+    for idx in chunks:
+        t, e = idx // n_all, idx % n_all
+        mine = (e >= lo) & (e < lo + n_loc)
+        out.append(t[mine] * n_loc + (e[mine] - lo))
+    return out
+
+
 def ppo_update(ac: ActorCritic, ppo_args: PPOArgs, state: PPOState,
                traj: Transition, advantages, returns, sampler,
                num_train_envs: int, num_curriculum_bins: int = 0,
-               entropy_coef=None) -> Tuple[PPOState, Dict[str, Any]]:
+               entropy_coef=None, shard=None
+               ) -> Tuple[PPOState, Dict[str, Any]]:
     """5 epochs x 4 minibatches over the flattened train-env transitions.
     Updates ``ac``'s parameters in place; returns the new state (its LR)
     and the JAX package's metrics: ``mean_value_loss``,
     ``mean_surrogate_loss``, ``mean_adaptation_loss``, ``kl``, ``lr``,
     ``mean_noise_std`` and, with curriculum bins, the per-bin sysid
-    residual ``sysid_residual_sum`` / ``sysid_residual_count``."""
+    residual ``sysid_residual_sum`` / ``sysid_residual_count``. With a
+    ``shard`` (:class:`..parallel.sharding.EnvShard`) ``traj`` holds this
+    rank's envs and ``num_train_envs`` its train envs; the minibatches are
+    the global ones, and every reduction is all-reduced over the ranks."""
     T = traj.obs.shape[0]
-    B_total = T * num_train_envs
+    n_all = num_train_envs if shard is None else shard.num_train_envs
+    B_total = T * n_all
     nmb = ppo_args.num_mini_batches
     mb_size = B_total // nmb
+    mesh = None if shard is None else shard.mesh
 
     def flat(x):
-        return x[:, :num_train_envs].reshape((B_total,) + x.shape[2:])
+        return x[:, :num_train_envs].reshape(
+            (T * num_train_envs,) + x.shape[2:])
+
+    def mean_of(x):
+        """The mean over the global minibatch: this rank's share."""
+        if shard is None:
+            return torch.mean(x)
+        return torch.sum(x) / (mb_size * math.prod(x.shape[1:]))
 
     data = dict(
         obs=flat(traj.obs), priv=flat(traj.privileged_obs),
@@ -221,10 +263,17 @@ def ppo_update(ac: ActorCritic, ppo_args: PPOArgs, state: PPOState,
         data["env_bins"] = flat(traj.env_bins).long()
     # advantage normalization over the whole batch (population std)
     a = data["adv"]
-    data["adv"] = (a - a.mean()) / (a.std(correction=0) + 1e-8)
+    if shard is None:
+        data["adv"] = (a - a.mean()) / (a.std(correction=0) + 1e-8)
+    else:   # two passes over the ranks' sums
+        mu = SH.all_reduce_sum(a.sum(), mesh) / B_total
+        var = SH.all_reduce_sum(((a - mu) ** 2).sum(), mesh) / B_total
+        data["adv"] = (a - mu) / (torch.sqrt(var) + 1e-8)
     # one permutation, reused by every epoch
     chunks = sampler.permutation("ppo/minibatch", nmb * mb_size).reshape(
         nmb, mb_size)
+    if shard is not None:
+        chunks = _local_chunks(chunks, shard)
 
     ent_coef = ppo_args.entropy_coef if entropy_coef is None else entropy_coef
     main_params = [p for g in state.opt.param_groups for p in g["params"]]
@@ -244,28 +293,32 @@ def ppo_update(ac: ActorCritic, ppo_args: PPOArgs, state: PPOState,
         for i in range(nmb):
             idx = chunks[i]
             mb = {k: v[idx] for k, v in data.items()}
-            mean, std = ac.distribution(mb["obs"], mb["priv"])
-            log_prob = normal_log_prob(mean, std, mb["actions"])
+            mean_a, std = ac.distribution(mb["obs"], mb["priv"])
+            log_prob = normal_log_prob(mean_a, std, mb["actions"])
             value = ac.evaluate(mb["obs"], mb["priv"])
             entropy = normal_entropy(std)
-            kl = torch.mean(normal_kl(mb["mu"], mb["sigma"], mean,
-                                      std)).detach()
+            kl = mean_of(normal_kl(mb["mu"], mb["sigma"], mean_a,
+                                   std)).detach()
             ratio = torch.exp(torch.clamp(log_prob - mb["log_prob"],
                                           -20.0, 20.0))
             surr = -mb["adv"] * ratio
             surr_clipped = -mb["adv"] * torch.clamp(ratio, 1.0 - clip,
                                                     1.0 + clip)
-            surrogate_loss = torch.mean(torch.maximum(surr, surr_clipped))
+            surrogate_loss = mean_of(torch.maximum(surr, surr_clipped))
             if ppo_args.use_clipped_value_loss:
                 v_clipped = mb["values"] + torch.clamp(
                     value - mb["values"], -clip, clip)
-                v_loss = torch.maximum((value - mb["ret"]) ** 2,
-                                       (v_clipped - mb["ret"]) ** 2).mean()
+                v_loss = mean_of(torch.maximum((value - mb["ret"]) ** 2,
+                                               (v_clipped - mb["ret"]) ** 2))
             else:
-                v_loss = torch.mean((mb["ret"] - value) ** 2)
+                v_loss = mean_of((mb["ret"] - value) ** 2)
             loss = (surrogate_loss + ppo_args.value_loss_coef * v_loss
-                    - ent_coef * torch.mean(entropy))
+                    - ent_coef * mean_of(entropy))
             grads = torch.autograd.grad(loss, main_params)
+            if shard is not None:
+                kl, surrogate_loss, v_loss, *grads = SH.all_reduce_flat(
+                    [kl, surrogate_loss.detach(), v_loss.detach(), *grads],
+                    mesh)
 
             # the LR changes before this minibatch's step, from its KL
             if (ppo_args.desired_kl is not None
@@ -284,7 +337,7 @@ def ppo_update(ac: ActorCritic, ppo_args: PPOArgs, state: PPOState,
                 pred = ac.student_latent(mb["hist"])
                 with torch.no_grad():
                     target = ac.teacher_latent(mb["priv"])
-                a_loss_i = torch.mean((pred - target) ** 2)
+                a_loss_i = mean_of((pred - target) ** 2)
                 if num_curriculum_bins > 0:
                     with torch.no_grad():
                         residual = torch.linalg.norm(target - pred, dim=-1)
@@ -292,6 +345,9 @@ def ppo_update(ac: ActorCritic, ppo_args: PPOArgs, state: PPOState,
                         resid_cnt.index_add_(0, mb["env_bins"],
                                              torch.ones_like(residual))
                 a_grads = torch.autograd.grad(a_loss_i, adapt_params)
+                if shard is not None:
+                    a_loss_i, *a_grads = SH.all_reduce_flat(
+                        [a_loss_i.detach(), *a_grads], mesh)
                 for p, g in zip(adapt_params, a_grads):
                     p.grad = g
                 state.adapt_opt.step()
@@ -307,15 +363,21 @@ def ppo_update(ac: ActorCritic, ppo_args: PPOArgs, state: PPOState,
                for k, v in rec.items()}
     metrics["lr"] = torch.tensor(lr, device=dev)
     metrics["mean_noise_std"] = ac.std.detach().mean()
+    if num_curriculum_bins > 0 and shard is not None:
+        resid_sum, resid_cnt = SH.all_reduce_flat([resid_sum, resid_cnt],
+                                                  mesh)
     if num_curriculum_bins > 0:
         metrics["sysid_residual_sum"] = resid_sum
         metrics["sysid_residual_count"] = resid_cnt
     return state._replace(lr=lr), metrics
 
 
-def _aggregate_rollout_metrics(traj: Transition, infos):
+def _aggregate_rollout_metrics(traj: Transition, infos, shard=None,
+                               replicated=()):
     """Episode-sum accumulators add over the T axis; gauges take the
-    last step's value; the ``_render/*`` pose log passes whole."""
+    last step's value; the ``_render/*`` pose log passes whole. With a
+    ``shard`` each metric but the ``replicated`` ones is this rank's share,
+    and the shares are summed over the ranks in one all-reduce."""
     out = {}
     for k, v in infos.items():
         if k.startswith("_render/"):
@@ -324,8 +386,18 @@ def _aggregate_rollout_metrics(traj: Transition, infos):
             out[k] = torch.sum(v, dim=0)
         else:
             out[k] = v[-1]
-    out["mean_reward"] = torch.mean(traj.rewards)
-    out["mean_episode_dones"] = torch.mean(traj.dones.float())
+    if shard is None:
+        out["mean_reward"] = torch.mean(traj.rewards)
+        out["mean_episode_dones"] = torch.mean(traj.dones.float())
+        return out
+    n = traj.rewards.shape[0] * shard.num_envs
+    out["mean_reward"] = torch.sum(traj.rewards) / n
+    out["mean_episode_dones"] = torch.sum(traj.dones.float()) / n
+    keys = [k for k in out if not k.startswith("_render/")
+            and k not in replicated]
+    for k, v in zip(keys, SH.all_reduce_flat([out[k] for k in keys],
+                                             shard.mesh)):
+        out[k] = v
     return out
 
 
@@ -348,7 +420,9 @@ def train_iteration(env, ac: ActorCritic, ppo_args: PPOArgs, env_state,
     with torch.no_grad():
         last_values = ac.evaluate(env_state.obs, env_state.privileged_obs)
     adv, ret = compute_gae(traj, last_values, ppo_args.gamma, ppo_args.lam)
-    metrics = _aggregate_rollout_metrics(traj, infos)
+    shard = getattr(env, "shard", None)
+    metrics = _aggregate_rollout_metrics(
+        traj, infos, shard, getattr(env, "REPLICATED_INFO", ()))
     if timings is not None:
         _sync(traj.obs.device)
         t1 = time.perf_counter()
@@ -359,7 +433,7 @@ def train_iteration(env, ac: ActorCritic, ppo_args: PPOArgs, env_state,
     ppo_state, update_metrics = ppo_update(
         ac, ppo_args, ppo_state, traj, adv, ret, sampler,
         env.num_train_envs, num_curriculum_bins=nbins,
-        entropy_coef=entropy_coef)
+        entropy_coef=entropy_coef, shard=shard)
     if timings is not None:
         _sync(traj.obs.device)
         timings["update_s"] = time.perf_counter() - t1

@@ -18,6 +18,13 @@ package's StableHLO file).
 Videos: every ``save_video_interval`` iterations the Runner renders env
 0's poses over the last ``_video_window`` rollouts (the rollout's
 ``_render/*`` log) into ``videos/{it:05d}.gif``.
+
+Under ``torch.distributed`` (a sharded run,
+:func:`..parallel.sharding.make_sharded_runner_placement`) only rank 0
+writes logs, videos, the curriculum dump and checkpoints; a checkpoint
+holds the env state gathered from every rank, ``tot_timesteps`` counts
+the global envs, and :meth:`Runner.load_checkpoint` places the loaded
+state on the ranks again.
 """
 
 from __future__ import annotations
@@ -28,9 +35,11 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import convert
 from ..models.networks import ACArgs, ActorCritic
+from ..parallel import sharding as SH
 from ..sampler import Sampler
 from ..utils.checkpoint import (export_student_policy, load_pytree,
                                 save_pytree)
@@ -63,7 +72,10 @@ class Runner:
         self.ac_args = ac_args or ACArgs()
         self.ppo_args = ppo_args or PPOArgs()
         self.args = runner_args or RunnerArgs()
-        self.logger = MetricsLogger(logdir)
+        # one writer among the processes of a run: rank 0
+        self.is_writer = (not (dist.is_available() and dist.is_initialized())
+                          or dist.get_rank() == 0)
+        self.logger = MetricsLogger(logdir, write=self.is_writer)
         self.eval_expert = eval_expert
         self.sampler = Sampler(seed, self.device)
         torch.manual_seed(seed)
@@ -96,22 +108,32 @@ class Runner:
             "AC_Args": dataclasses.asdict(self.ac_args),
             "RunnerArgs": dataclasses.asdict(self.args),
         })
-        with open(f"{self.logger.logdir}/.charts.yml", "w") as f:
-            f.write(
-                "charts:\n"
-                "- yKey: train/episode/rew_total/mean\n"
-                "  xKey: iterations\n"
-                "- yKey: train/episode/rew_tracking_lin_vel/mean\n"
-                "  xKey: iterations\n"
-                "- yKey: train/episode/command_area/mean\n"
-                "  xKey: iterations\n"
-                "- type: video\n"
-                "  glob: videos/*.gif\n")
+        if self.is_writer:
+            with open(f"{self.logger.logdir}/.charts.yml", "w") as f:
+                f.write(
+                    "charts:\n"
+                    "- yKey: train/episode/rew_total/mean\n"
+                    "  xKey: iterations\n"
+                    "- yKey: train/episode/rew_tracking_lin_vel/mean\n"
+                    "  xKey: iterations\n"
+                    "- yKey: train/episode/command_area/mean\n"
+                    "  xKey: iterations\n"
+                    "- type: video\n"
+                    "  glob: videos/*.gif\n")
 
     def _reset_eval(self, state):
-        mask = (torch.arange(self.env.num_envs, device=self.device)
-                >= self.env.num_train_envs)
+        if hasattr(self.env, "train_mask"):
+            mask = ~self.env.train_mask()
+        else:
+            mask = (torch.arange(self.env.num_envs, device=self.device)
+                    >= self.env.num_train_envs)
         return self.env.reset_envs(state, mask, self.sampler)
+
+    @property
+    def num_envs(self) -> int:
+        """The run's envs, over all ranks."""
+        shard = getattr(self.env, "shard", None)
+        return self.env.num_envs if shard is None else shard.num_envs
 
     # ------------------------------------------------------------------
     def learn(self, num_learning_iterations: int,
@@ -202,14 +224,15 @@ class Runner:
             time_iter=logger.split("epoch"),
             **store)
 
-        self.tot_timesteps += (self.args.num_steps_per_env
-                               * self.env.num_envs)
+        self.tot_timesteps += self.args.num_steps_per_env * self.num_envs
         if it % self.args.log_freq == 0:
             row = logger.log_metrics_summary(
                 key_values={"timesteps": self.tot_timesteps,
                             "iterations": it})
+            if not self.is_writer:
+                return
             rew = row.get("train/episode/rew_total/mean", float("nan"))
-            steps_s = (self.args.num_steps_per_env * self.env.num_envs
+            steps_s = (self.args.num_steps_per_env * self.num_envs
                        / max(row.get("time_iter/mean", 1e9), 1e-9))
             print(f"it {it:5d} | rew_total {rew:8.3f} | "
                   f"{steps_s:9.0f} env-steps/s | "
@@ -222,7 +245,7 @@ class Runner:
         ppo/__init__.py:267-286; here the poses ride the training rollout).
         The HLP state logs no pose, so an HLP run writes no video; without
         Pillow nothing is written."""
-        if not self._pose_buffer:
+        if not self._pose_buffer or not self.is_writer:
             return
         from ..utils.render import env_terrain, render_trajectory
         pos, quat, q, origin = (
@@ -238,7 +261,7 @@ class Runner:
     def _dump_curriculum(self, it: int):
         """curriculum/info.pkl: the SlotCache/DistCache summaries and the
         per-bin curriculum state."""
-        if not hasattr(self.env_state, "curriculum"):
+        if not hasattr(self.env_state, "curriculum") or not self.is_writer:
             return   # the HLP state has no command curriculum
         c = self.env_state.curriculum
         self.logger.save_pkl(
@@ -253,10 +276,17 @@ class Runner:
 
     # ------------------------------------------------------------------
     def save_checkpoint(self, it: int, final: bool = False):
+        """Rank 0 writes; on a sharded env every rank first takes part in
+        gathering the env state."""
+        shard = getattr(self.env, "shard", None)
+        env_state = (self.env_state if shard is None
+                     else SH.gather_env_state(self.env_state, shard))
+        if not self.is_writer:
+            return
         ckpt_dir = f"{self.logger.logdir}/checkpoints"
         payload = dict(
             ppo_state=convert.ppo_state_to_jax(self.ac, self.ppo_state),
-            env_state=convert.state_to_jax(self.env_state),
+            env_state=convert.state_to_jax(env_state),
             key=self.sampler.generator.get_state().numpy(),
             iteration=self.current_learning_iteration,
             tot_timesteps=self.tot_timesteps)
@@ -274,12 +304,18 @@ class Runner:
         package: params, both Adam states, the LR, the env state, the
         iteration and the step count. The port's files also restore the
         sampler; a JAX PRNG key has no torch counterpart and leaves the
-        sampler as it is."""
+        sampler as it is. On a sharded env each rank keeps its rows of the
+        env state, and rank 0's train state is broadcast."""
         payload = load_pytree(path)
         self.ppo_state = convert.ppo_state_from_jax(
             payload["ppo_state"], self.ac, self.ppo_args)
         self.env_state = convert.state_from_jax(payload["env_state"],
                                                 self.device)
+        shard = getattr(self.env, "shard", None)
+        if shard is not None:
+            self.env_state = SH.place_env_state(self.env_state,
+                                                shard.num_envs, shard.mesh)
+            self.ppo_state = SH.place_train_state(self.ppo_state, shard.mesh)
         key = np.asarray(payload["key"])
         if key.dtype == np.uint8:
             self.sampler.generator.set_state(torch.from_numpy(key.copy()))

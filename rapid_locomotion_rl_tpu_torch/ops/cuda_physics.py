@@ -8,17 +8,21 @@ chain, geom and body, in the plain version's order of sums); for tensors on
 the CPU it runs the plain version. It replaces the JAX package's
 Pallas kernel ``ops/pallas_physics.py::_kernel``.
 
-The kernel library is built at first use by ``nvcc`` into
-``build/torch_kernels/<hash of csrc/>/`` and loaded with ``ctypes``: the
-sources have a plain C interface and include no PyTorch header, so the
-build takes seconds. Only the variants the env runs are built for the
-card: the quadruped limb layout (3 x 4) with the implicit-damping input, on
-the plane (Go1), on terrain (Mini Cheetah, trimesh), on terrain with the
-world boxes of the HLP corridor, on terrain with the legacy contact model
-(``SimCfg.contact_model = "legacy"``), and on terrain with the legacy
-contact model and a fixed base (``AssetCfg.fix_base_link``; a fixed base
-under the apparent model is refused on every device by
-:func:`.soa_physics.check_supported`). The same per-env body also builds
+Every variant of the JAX package's kernel is built for the card
+(:data:`CUDA_VARIANTS`), each its own small library, by ``nvcc`` into
+``build/torch_kernels/<hash of csrc/>/`` at its first launch (or all at
+once, in parallel, by :meth:`PhysicsStepKernel.build_all`) and loaded with
+``ctypes``: the sources have a plain C interface and include no PyTorch
+header, so a build takes seconds. The variants cover both limb layouts
+in the repo (the quadruped's 3 x 4, the test hopper's 1 x 2): on the plane
+or terrain,
+with or without the world boxes of the HLP corridor, with the apparent or
+the legacy contact model (``SimCfg.contact_model``), and with the legacy
+model also a fixed base (``AssetCfg.fix_base_link``; a fixed base under
+the apparent model is refused on every device by
+:func:`.soa_physics.check_supported`). Every instance takes the
+implicit-damping input; a caller without one gets zeros, which give the
+bits of the instance without it. The same per-env body also builds
 with ``g++`` into a CPU library, in every variant
 (:func:`build_host_library`, each phase's lanes run one after another),
 which the CPU tests hold against the plain version.
@@ -43,7 +47,9 @@ import os
 import shutil
 import subprocess
 import tempfile
-from typing import Optional
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -76,8 +82,33 @@ W_HDR = 8
 W_BOX = 6
 MAX_NG = 64
 MAX_NR = 32
-LAYOUTS = ((3, 4), (1, 2))   # (D, K) instantiated in the host source
-CUDA_LAYOUT = (3, 4)         # the one built for the card, implicit PD on
+LAYOUTS = ((3, 4), (1, 2))   # (D, K) instantiated in both sources
+# the card's variants (D, K, terrain, world boxes, legacy contact, fixed
+# base), each with the implicit-damping input; the order of
+# csrc/physics_step.cu's RL_CARD_VARIANTS
+CUDA_VARIANTS = tuple((D, K, ter, wld, leg, fix) for (D, K) in LAYOUTS
+                      for ter in (0, 1) for wld in (0, 1)
+                      for (leg, fix) in ((0, 0), (1, 0), (1, 1)))
+Variant = Tuple[int, int, int, int, int, int]
+
+
+def variant_of(layout: LimbLayout, has_terrain=False, has_world=False,
+               legacy=False, fixed_base=False) -> Variant:
+    return (layout.D, layout.K, int(has_terrain), int(has_world),
+            int(legacy), int(fixed_base))
+
+
+def variant_name(v: Variant) -> str:
+    """``physics_step`` plus the layout when it is not 3 x 4 and each
+    switch that is on: ``physics_step_terrain_world_legacy``,
+    ``physics_step_1x2_fixed_base``..."""
+    D, K, ter, wld, leg, fix = v
+    parts = ["physics_step"]
+    if (D, K) != (3, 4):
+        parts.append(f"{D}x{K}")
+    parts += [s for s, on in (("terrain", ter), ("world", wld),
+                              ("legacy", leg), ("fixed_base", fix)) if on]
+    return "_".join(parts)
 
 
 def sources_hash() -> str:
@@ -107,26 +138,50 @@ def _compile(cmd, out_path):
     return proc.stdout + proc.stderr
 
 
-def build_cuda_library(phase_clocks: bool = False):
-    """Build (or find) the CUDA library; returns (path, compiler log). The
-    log holds ptxas's register, spill and shared-memory lines; it is empty
-    when the library was already built from these sources. With
-    ``phase_clocks`` the timing build (``-DRL_PHASE_CLOCKS``, into a
-    directory of its own): the first warp of block 0 notes ``clock64()`` at
-    its start and after every team phase."""
-    out = os.path.join(ROOT_DIR, "build", "torch_kernels", sources_hash()
-                       + ("-clocks" if phase_clocks else ""),
-                       "libphysics_step.so")
+def cuda_library_path(variant: Variant, phase_clocks: bool = False) -> str:
+    D, K, ter, wld, leg, fix = variant
+    return os.path.join(ROOT_DIR, "build", "torch_kernels", sources_hash()
+                        + ("-clocks" if phase_clocks else ""),
+                        f"libphysics_step_{D}x{K}_t{ter}w{wld}l{leg}f{fix}.so")
+
+
+def build_cuda_library(variant: Variant, phase_clocks: bool = False):
+    """Build (or find) one variant's CUDA library; returns (path, compiler
+    log, seconds of its nvcc). The log holds ptxas's register, spill and
+    shared-memory lines; it is empty, and the seconds 0, when the library
+    was already built from these sources. With ``phase_clocks`` the timing
+    build (``-DRL_PHASE_CLOCKS``, into a directory of its own): the first
+    warp of block 0 notes ``clock64()`` at its start and after every team
+    phase."""
+    if tuple(variant) not in CUDA_VARIANTS:
+        raise ValueError(f"{variant} is not a variant of CUDA_VARIANTS")
+    out = cuda_library_path(variant, phase_clocks)
     if os.path.exists(out):
-        return out, ""
+        return out, "", 0.0
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(nvcc):
         raise RuntimeError("nvcc not found: the CUDA toolkit is required to "
                            "build the physics kernel")
-    log = _compile([nvcc, *NVCC_FLAGS,
+    defs = [f"-DRL_{k}={v}" for k, v in zip(
+        ("D", "K", "TER", "WLD", "LEG", "FIX"), variant)]
+    t = time.perf_counter()
+    log = _compile([nvcc, *NVCC_FLAGS, *defs,
                     *(["-DRL_PHASE_CLOCKS"] if phase_clocks else []),
                     "physics_step.cu"], out)
-    return out, log
+    return out, log, time.perf_counter() - t
+
+
+def build_cuda_libraries(variants: Sequence[Variant] = CUDA_VARIANTS,
+                         phase_clocks: bool = False
+                         ) -> Dict[Variant, tuple]:
+    """Build the variants' libraries in parallel, an nvcc each (as many at
+    once as the machine has cores); {variant: (path, log, seconds)}."""
+    variants = [tuple(v) for v in variants]
+    with ThreadPoolExecutor(max(1, min(len(variants),
+                                       os.cpu_count() or 1))) as pool:
+        built = list(pool.map(
+            lambda v: build_cuda_library(v, phase_clocks), variants))
+    return dict(zip(variants, built))
 
 
 def build_host_library(build_dir: str, lanes_reversed: bool = False) -> str:
@@ -321,14 +376,15 @@ def legacy_contact(sim_cfg) -> bool:
 
 
 class PhysicsStepKernel:
-    """The built CUDA library, the constant tables, and the launch counts.
+    """The built CUDA libraries (one per variant), the constant tables, and
+    the launch counts.
 
-    ``launches`` grows by one at each kernel launch and nowhere else;
-    ``terrain_launches`` counts the launches on terrain among them,
-    ``world_launches`` those with world boxes, ``legacy_launches`` those
-    with the legacy contact model and ``fixed_base_launches`` those with a
-    fixed base (a launch counts in each that applies: a fixed-base launch
-    is also a legacy and a terrain launch)."""
+    ``launches`` grows by one at each kernel launch and nowhere else, and
+    ``variant_launches[variant]`` with it; ``terrain_launches`` counts the
+    launches on terrain among them, ``world_launches`` those with world
+    boxes, ``legacy_launches`` those with the legacy contact model and
+    ``fixed_base_launches`` those with a fixed base (a launch counts in
+    each that applies: a fixed-base launch is also a legacy launch)."""
 
     def __init__(self, phase_clocks: bool = False):
         self.phase_clocks = phase_clocks   # the timing build
@@ -337,42 +393,65 @@ class PhysicsStepKernel:
         self.world_launches = 0
         self.legacy_launches = 0
         self.fixed_base_launches = 0
-        self.build_log = ""
-        self.library_path = None
-        self._fn = None
+        self.variant_launches: Dict[Variant, int] = {}
+        # {variant: (path, compiler log, seconds of its nvcc)}
+        self.builds: Dict[Variant, tuple] = {}
+        self._libs = {}
         self._tables = {}
 
-    def load(self):
-        """Build the library if needed and bind its C entry points."""
-        if self._fn is None:
-            path, log = build_cuda_library(self.phase_clocks)
-            lib = ctypes.CDLL(path)
-            fn = lib.rl_physics_step
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                           *[ctypes.c_int] * 9, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            occ = lib.rl_physics_step_occupancy
-            occ.argtypes = [*[ctypes.c_int] * 8, ctypes.c_void_p]
-            occ.restype = ctypes.c_int
-            if self.phase_clocks:
-                lib.rl_phase_clocks.argtypes = [ctypes.c_void_p]
-                lib.rl_phase_clocks.restype = ctypes.c_int
-            self._lib, self._fn = lib, fn
-            self.library_path, self.build_log = path, log
-        return self._fn
+    def zero_counts(self):
+        self.launches = self.terrain_launches = self.world_launches = 0
+        self.legacy_launches = self.fixed_base_launches = 0
+        self.variant_launches = {}
+
+    def _bind(self, variant: Variant, path: str):
+        lib = ctypes.CDLL(path)
+        lib.rl_physics_step.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            *[ctypes.c_int] * 8, ctypes.c_void_p]
+        lib.rl_physics_step.restype = ctypes.c_int
+        lib.rl_physics_step_occupancy.argtypes = [*[ctypes.c_int] * 7,
+                                                  ctypes.c_void_p]
+        lib.rl_physics_step_occupancy.restype = ctypes.c_int
+        if self.phase_clocks:
+            lib.rl_phase_clocks.argtypes = [ctypes.c_void_p]
+            lib.rl_phase_clocks.restype = ctypes.c_int
+        self._libs[variant] = lib
+        return lib
+
+    def build_all(self, variants: Sequence[Variant] = CUDA_VARIANTS
+                  ) -> Dict[Variant, tuple]:
+        """Build every variant's library in parallel and bind them."""
+        todo = [tuple(v) for v in variants if tuple(v) not in self._libs]
+        built = build_cuda_libraries(todo, self.phase_clocks)
+        for v, b in built.items():
+            self.builds[v] = b
+            self._bind(v, b[0])
+        return {tuple(v): self.builds[tuple(v)] for v in variants}
+
+    def load(self, variant: Variant):
+        """Build the variant's library if needed and bind its entry
+        points."""
+        variant = tuple(variant)
+        lib = self._libs.get(variant)
+        if lib is None:
+            self.builds[variant] = build_cuda_library(variant,
+                                                      self.phase_clocks)
+            lib = self._bind(variant, self.builds[variant][0])
+        return lib
 
     def occupancy(self, cst_len: int, has_terrain: bool = False,
                   has_world: bool = False, legacy: bool = False,
-                  fixed_base: bool = False) -> dict:
+                  fixed_base: bool = False, layout=(3, 4)) -> dict:
         """What the CUDA runtime reports for a variant's instance with a
         table of ``cst_len`` floats: shared bytes per env and per block,
         envs per block, resident blocks and warps per SM, registers and
         local (stack) bytes per thread."""
-        self.load()
+        D, K = layout
+        v = (D, K, int(has_terrain), int(has_world), int(legacy),
+             int(fixed_base))
         out = (ctypes.c_int * 6)()
-        err = self._lib.rl_physics_step_occupancy(
-            cst_len, *CUDA_LAYOUT, 1, int(has_terrain), int(has_world),
-            int(legacy), int(fixed_base), out)
+        err = self.load(v).rl_physics_step_occupancy(cst_len, *v, out)
         if err != 0:
             raise RuntimeError(f"occupancy query failed: cudaError {err}")
         keys = ("scratch_bytes_per_env", "smem_bytes_per_block",
@@ -382,16 +461,15 @@ class PhysicsStepKernel:
         occ["warps_per_sm"] = occ["blocks_per_sm"] * occ["envs_per_block"]
         return occ
 
-    def read_phase_clocks(self) -> list:
-        """The timing build's clocks noted since the last read (block 0's
-        first warp: its start, then the end of each team phase; at most
-        512), after which the count starts again."""
+    def read_phase_clocks(self, variant: Variant) -> list:
+        """The timing build's clocks that ``variant`` noted since the last
+        read (block 0's first warp: its start, then the end of each team
+        phase; at most 512), after which its count starts again."""
         if not self.phase_clocks:
             raise RuntimeError("phase clocks need PhysicsStepKernel("
                                "phase_clocks=True)")
-        self.load()
         buf = (ctypes.c_longlong * 512)()
-        n = self._lib.rl_phase_clocks(buf)
+        n = self.load(variant).rl_phase_clocks(buf)
         if n < 0:
             raise RuntimeError("reading the phase clocks failed")
         return list(buf[:n])
@@ -423,21 +501,16 @@ class PhysicsStepKernel:
                       has_terrain: bool = False, has_world: bool = False,
                       legacy: bool = False, fixed_base: bool = False):
         """Launch on packed [C_in, N] input and [C_out, N] output arrays on
-        the current stream; raises if the launch is refused."""
-        if (layout.D, layout.K) != CUDA_LAYOUT or not has_imp:
-            raise NotImplementedError(
-                f"the CUDA kernel is built for limb layout {CUDA_LAYOUT} with "
-                f"implicit damping given (zeros for none), not "
-                f"{layout.D}x{layout.K} with has_imp={has_imp}")
-        if has_world and not has_terrain:
-            raise NotImplementedError(
-                "the CUDA kernel's world variant is built on terrain only")
-        if (legacy or fixed_base) and (has_world or not has_terrain):
-            raise NotImplementedError(
-                "the CUDA kernel's legacy and fixed-base variants are built "
-                "on terrain without world boxes only")
+        the current stream; raises if the launch fails. An input packed
+        without the implicit-damping rows (``has_imp`` false) gets rows of
+        zeros in their place."""
         if fixed_base and not legacy:
             raise ValueError(FIXED_BASE_APPARENT)
+        variant = variant_of(layout, has_terrain, has_world, legacy,
+                             fixed_base)
+        if variant not in CUDA_VARIANTS:
+            raise ValueError(f"limb layout {layout.D}x{layout.K} has no "
+                             f"kernel (layouts {LAYOUTS})")
         for t in (x, y, cst):
             if (t.device.type != "cuda" or t.dtype != torch.float32
                     or not t.is_contiguous()):
@@ -446,16 +519,22 @@ class PhysicsStepKernel:
         if x.dim() != 2 or y.dim() != 2 or x.shape[1] != y.shape[1]:
             raise ValueError(f"input {tuple(x.shape)} and output "
                              f"{tuple(y.shape)} disagree on the env count")
-        fn = self.load()
+        if not has_imp:
+            # the damping rows follow the state, tau and the 6 DR rows
+            c = 13 + 3 * layout.D * layout.K + 6
+            x = torch.cat([x[:c], x.new_zeros((layout.D * layout.K,
+                                               x.shape[1])), x[c:]])
+        lib = self.load(variant)
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(y.data_ptr()),
-                 ctypes.c_void_p(cst.data_ptr()), cst.numel(), x.shape[1],
-                 layout.D, layout.K, int(has_imp), int(has_terrain),
-                 int(has_world), int(legacy), int(fixed_base),
-                 ctypes.c_void_p(stream))
+        err = lib.rl_physics_step(
+            ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(y.data_ptr()),
+            ctypes.c_void_p(cst.data_ptr()), cst.numel(), x.shape[1],
+            *variant, ctypes.c_void_p(stream))
         if err != 0:
             raise RuntimeError(f"physics kernel launch failed: cudaError {err}")
         self.launches += 1
+        self.variant_launches[variant] = (
+            self.variant_launches.get(variant, 0) + 1)
         self.terrain_launches += int(has_terrain)
         self.world_launches += int(has_world)
         self.legacy_launches += int(legacy)
@@ -469,6 +548,8 @@ class PhysicsStepKernel:
         _check_world(world_boxes, env_origin)
         _check_inputs(model, state, tau, params, implicit_damp, device,
                       terrain, env_origin)
+        if implicit_damp is None:
+            implicit_damp = torch.zeros_like(tau)
         cst = self.table(model, sim_cfg, layout, device, world_boxes,
                          world_friction)
         gt = (None if terrain is None else geom_terrain_at(
@@ -477,9 +558,9 @@ class PhysicsStepKernel:
                         env_origin)
         y = torch.empty((out_channels(model), x.shape[1]),
                         dtype=torch.float32, device=device)
-        self.launch_packed(x, y, cst, layout, implicit_damp is not None,
-                           terrain is not None, world_boxes is not None,
-                           legacy_contact(sim_cfg), fixed_base)
+        self.launch_packed(x, y, cst, layout, True, terrain is not None,
+                           world_boxes is not None, legacy_contact(sim_cfg),
+                           fixed_base)
         return unpack_outputs(model, y)
 
 

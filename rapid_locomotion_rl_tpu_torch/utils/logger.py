@@ -25,11 +25,16 @@ from typing import Any, Dict, List, Optional
 
 
 class MetricsLogger:
-    def __init__(self, logdir: str):
+    """With ``write`` off (a rank other than 0 of a sharded run) it keeps
+    its rows in memory and writes nothing."""
+
+    def __init__(self, logdir: str, write: bool = True):
         self.logdir = logdir
-        os.makedirs(logdir, exist_ok=True)
-        os.makedirs(os.path.join(logdir, "checkpoints"), exist_ok=True)
-        os.makedirs(os.path.join(logdir, "curriculum"), exist_ok=True)
+        self.write = write
+        if write:
+            os.makedirs(logdir, exist_ok=True)
+            os.makedirs(os.path.join(logdir, "checkpoints"), exist_ok=True)
+            os.makedirs(os.path.join(logdir, "curriculum"), exist_ok=True)
         self._store: Dict[str, List[float]] = defaultdict(list)
         self._rows: List[Dict[str, Any]] = []
         self._timers: Dict[str, float] = {}
@@ -68,6 +73,8 @@ class MetricsLogger:
             row.update(key_values)
         row["_timestamp"] = time.time()
         self._rows.append(row)
+        if not self.write:
+            return row
         with open(os.path.join(self.logdir, "metrics.pkl"), "wb") as f:
             pickle.dump(self._rows, f)
         with open(os.path.join(self.logdir, "metrics.jsonl"), "a") as f:
@@ -76,10 +83,14 @@ class MetricsLogger:
 
     # -- artifacts --------------------------------------------------------
     def log_params(self, params: Dict[str, Any]):
+        if not self.write:
+            return
         with open(os.path.join(self.logdir, "parameters.json"), "w") as f:
             json.dump(params, f, indent=2, default=str)
 
     def save_pkl(self, obj: Any, path: str, append: bool = False):
+        if not self.write:
+            return
         full = os.path.join(self.logdir, path)
         os.makedirs(os.path.dirname(full), exist_ok=True)
         if append and os.path.exists(full):

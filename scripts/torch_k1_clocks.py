@@ -105,13 +105,14 @@ def main(argv=None):
     for name in cs.VARIANTS:
         x, cst, layout, flags, c_out = kernel.last[(name, widths[name])]
         y = torch.empty((c_out, x.shape[1]), device=dev)
+        v = CP.variant_of(layout, *flags[1:])
         torch.cuda.synchronize()
-        kernel.read_phase_clocks()
+        kernel.read_phase_clocks(v)
         runs = []
         for _ in range(args.reps):
             kernel.launch_packed(x, y, cst, layout, *flags)
             torch.cuda.synchronize()
-            runs.append(np.diff(np.array(kernel.read_phase_clocks(),
+            runs.append(np.diff(np.array(kernel.read_phase_clocks(v),
                                          np.int64)))
         d = np.median(np.stack(runs), 0)
         labels = phase_labels(name, int(cst[0].item()), layout.D)

@@ -6,6 +6,12 @@ scripts/train.py, same flags, defaults and config overrides).
                                  [--resume .../train_state_last.pkl]
                                  [--physics-impl auto|soa|aos]
                                  [--device cuda|cpu]
+                                 [--mesh auto|data|none] [--distributed]
+
+Data-parallel training, one process per card:
+
+    torchrun --nproc-per-node W scripts/train_cuda.py --distributed \
+        --mesh data [...]
 
 The Runner trains the teacher-student PPO policy at 24 steps per env and
 iteration, from random episode lengths, with eval-env resets and
@@ -22,9 +28,17 @@ the general (body by body) step instead, plain PyTorch on either device;
 Every 400 iterations the Runner renders env 0's poses of the last
 rollouts into ``videos/{it:05d}.gif`` (with Pillow), and each checkpoint
 exports the student policy as ``student_policy_latest.pt2`` beside its
-params. Two flags of scripts/train.py are left out, ``--mesh`` and
-``--distributed`` (sharding over several chips and processes); the port
-runs on one card.
+params.
+
+``--distributed`` calls ``torch.distributed.init_process_group`` from the
+variables that ``torchrun`` sets (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+``MASTER_ADDR``/``MASTER_PORT``): NCCL on ``cuda:LOCAL_RANK``, gloo with
+``--device cpu``. ``--mesh data`` (or ``auto`` with more than one process)
+then splits the env axis over the ranks
+(:mod:`rapid_locomotion_rl_tpu_torch.parallel.sharding`): each rank steps
+its ``num_envs / W`` envs, the update's reductions are all-reduced, and
+the iteration computes what one process computes over all the envs. Rank
+0 writes the logs and checkpoints.
 """
 
 import argparse
@@ -86,9 +100,32 @@ def parse_args(argv=None):
     ap.add_argument("--terrain", default=None,
                     choices=["plane", "heightfield", "trimesh"],
                     help="override cfg.terrain.mesh_type")
+    ap.add_argument("--mesh", default="auto", choices=["auto", "data", "none"],
+                    help="data parallelism over the env axis: 'auto' shards "
+                         "when the world size is above 1")
+    ap.add_argument("--distributed", action="store_true",
+                    help="call torch.distributed.init_process_group first "
+                         "(one process per card; reads RANK, WORLD_SIZE, "
+                         "LOCAL_RANK, MASTER_ADDR, MASTER_PORT as torchrun "
+                         "sets them): NCCL on cuda:LOCAL_RANK, gloo with "
+                         "--device cpu")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the CUDA kernel) or cpu (its plain version)")
     return ap.parse_args(argv)
+
+
+def init_distributed(args):
+    """The process group from torchrun's variables; with a card, this
+    process's device becomes ``cuda:LOCAL_RANK``. Returns the world size."""
+    import torch
+    import torch.distributed as dist
+    cpu = torch.device(args.device).type == "cpu"
+    if not cpu:
+        local = int(os.environ.get("LOCAL_RANK", 0))
+        args.device = f"cuda:{local}"
+        torch.cuda.set_device(local)
+    dist.init_process_group("gloo" if cpu else "nccl", init_method="env://")
+    return dist.get_world_size()
 
 
 def make_cfg(args):
@@ -161,12 +198,24 @@ def build_runner(args):
 
 
 def main(argv=None):
+    import torch.distributed as dist
     args = parse_args(argv)
-    runner = build_runner(args)
-    print(f"training {args.robot} x{runner.env.num_envs} envs on "
-          f"{runner.device} -> {args.logdir}")
-    runner.learn(args.iterations, init_at_random_ep_len=True,
-                 eval_freq=args.eval_freq)
+    world = init_distributed(args) if args.distributed else 1
+    try:
+        runner = build_runner(args)
+        if args.mesh == "data" or (args.mesh == "auto" and world > 1):
+            from rapid_locomotion_rl_tpu_torch.parallel.sharding import \
+                make_sharded_runner_placement
+            mesh = make_sharded_runner_placement(runner)
+            print(f"sharding env axis over {mesh.size} devices ({world} "
+                  f"process(es))")
+        print(f"training {args.robot} x{runner.num_envs} envs on "
+              f"{runner.device} -> {args.logdir}")
+        runner.learn(args.iterations, init_at_random_ep_len=True,
+                     eval_freq=args.eval_freq)
+    finally:
+        if args.distributed:
+            dist.destroy_process_group()
     return runner
 
 

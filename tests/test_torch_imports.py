@@ -11,6 +11,8 @@ from rapid_locomotion_rl_tpu import RLTPU_ROOT_DIR
 
 PORT = os.path.join(RLTPU_ROOT_DIR, "rapid_locomotion_rl_tpu_torch")
 SMOKE = os.path.join(RLTPU_ROOT_DIR, "chip_smoke.py")
+# the ranks of the data-parallel tests run it alone, with the port only
+WORKER = os.path.join(RLTPU_ROOT_DIR, "tests", "torch_dist_worker.py")
 
 SCRIPTS = [os.path.join(RLTPU_ROOT_DIR, "scripts", f)
            for f in sorted(os.listdir(os.path.join(RLTPU_ROOT_DIR,
@@ -33,6 +35,7 @@ from rapid_locomotion_rl_tpu_torch.models import (mjcf, networks,
 from rapid_locomotion_rl_tpu_torch.ops import (contact, cuda_physics,
     dynamics, limb_dynamics, physics, quat, soa, soa_physics, spatial,
     world)
+from rapid_locomotion_rl_tpu_torch.parallel import sharding
 from rapid_locomotion_rl_tpu_torch.utils import (checkpoint, debug, logger,
     raster, render)
 for name in sorted(os.listdir("scripts")):
@@ -50,7 +53,7 @@ print("BAD", bad)
 
 
 def test_every_port_module_is_probed():
-    """PROBE imports every module of the package."""
+    """PROBE imports every module of the package (``parallel/`` too)."""
     mods = {os.path.splitext(f)[0] for d, _, fs in os.walk(PORT)
             for f in fs if f.endswith(".py") and f != "__init__.py"}
     names = set(re.findall(r"\b\w+\b", PROBE))
@@ -72,7 +75,7 @@ def test_port_imports_no_jax():
 def test_no_jax_import_lines():
     pat = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|"
                      r"rapid_locomotion_rl_tpu)(\.|\s|$)")
-    files = [SMOKE] + SCRIPTS + [os.path.join(d, f)
+    files = [SMOKE, WORKER] + SCRIPTS + [os.path.join(d, f)
                                  for d, _, fs in os.walk(PORT)
                                  for f in fs if f.endswith(".py")]
     hits = [f"{p}:{i}: {line.rstrip()}" for p in files

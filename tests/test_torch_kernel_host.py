@@ -11,6 +11,7 @@ input, with or without the world boxes of the HLP corridor. The body runs
 as a team of lanes in phases; a second build runs each phase's lanes in
 reverse and must give the same bits (a race between lanes would not)."""
 
+import os
 import re
 import shutil
 
@@ -167,33 +168,54 @@ def test_host_kernel_world_matches_plain(host_lib, models, robot, kind,
     ("hopper", "hopper", True, False, False),
     ("hopper", "hopper", True, True, False),
     ("hopper", "hopper", False, True, True),
+    ("hopper", "hopper", False, False, True),
+    ("hopper", "hopper", True, False, True),
+    ("hopper", "hopper", True, True, True),
     ("go1", "ground", False, False, False),
+    ("go1", "ground", False, True, False),
     ("mc", "flight", True, False, False),
     ("mc", "ground", True, False, False),
     ("mc", "flight", True, True, False),
     ("mc", "ground", True, True, False),
+    ("mc", "ground", False, False, True),
+    ("mc", "ground", False, True, True),
+    ("mc", "flight", True, False, True),
+    ("mc", "ground", True, True, True),
 ])
 def test_host_kernel_legacy_and_fixed_base_match_plain(
         host_lib, models, robot, kind, terrain, fixed, world):
     """The legacy-contact variant (LEG), floating or with a fixed base
-    (FIX): the hopper on the plane, on the step grid, and with a fixed
-    base in the walls of tests/test_pallas_physics.py's corridor; Go1
-    grounded on the plane; Mini Cheetah in flight and grounded over the
-    generated grid. Implicit PD on."""
+    (FIX): the hopper on the plane, on the step grid, and in the walls of
+    tests/test_pallas_physics.py's corridor on both; Go1 grounded on the
+    plane, floating and fixed; Mini Cheetah in flight and grounded over
+    the generated grid, and in the default corridor (flight at 0.75 m,
+    inside the walls' height) on the plane and over the grid. Implicit PD
+    on."""
     model = models[robot]
     n = 200 if robot == "hopper" else 64
     state, params, tau, imp = physics_inputs(model, n, 13, kind)
-    grid = None
+    grid, boxes, origins = None, None, None
+    if world:
+        if robot == "hopper":
+            boxes = default_corridor(1.2, 0.5, wall_height=1.0)
+            origins = np.zeros((n, 3), np.float32)
+        else:
+            boxes = default_corridor()
+            state, origins = near_walls(state, 20, 0.75 if kind == "flight"
+                                        else None)
     if terrain:
         grid = step_grid()[1] if robot == "hopper" else generated_grid()[1]
         if robot != "hopper":
+            rel = state["base_pos"][:, :2] - (0 if origins is None
+                                              else origins[:, :2])
             state = on_terrain(state, grid, 14)
+            if origins is not None:
+                origins[:, :2] = state["base_pos"][:, :2] - rel
     state, params, tau, imp = torch_inputs(state, params, tau, imp)
     sim = SimCfg(contact_model="legacy")
     kw = dict(terrain=grid, implicit_damp=imp)
     if world:
-        kw.update(world_boxes=default_corridor(1.2, 0.5, wall_height=1.0),
-                  env_origin=torch.zeros(n, 3))
+        kw.update(world_boxes=boxes, env_origin=torch.tensor(origins))
     ref = physics_step_soa(model, sim, state, tau, params, fixed_base=fixed,
                            **kw)
     out = CP.physics_step_host(host_lib, model, sim, state, tau, params,
@@ -203,7 +225,7 @@ def test_host_kernel_legacy_and_fixed_base_match_plain(
     if fixed:
         assert torch.equal(out.state.base_pos, state.base_pos)
         assert (out.state.base_lin_vel == 0).all()
-    if world:
+    if world and kind != "ground":
         assert_step_close_walls(ref, out, wall_depth(
             model, kw["world_boxes"], ref.geom_pos, kw["env_origin"]))
     else:
@@ -216,6 +238,13 @@ LANE_VARIANTS = {  # terrain, world boxes, legacy contact, fixed base
     "world": (True, True, False, False),
     "legacy": (True, False, True, False),
     "fixed_base": (True, False, True, True),
+    "plane_world": (False, True, False, False),
+    "plane_legacy": (False, False, True, False),
+    "plane_legacy_fixed_base": (False, False, True, True),
+    "plane_world_legacy": (False, True, True, False),
+    "plane_world_legacy_fixed_base": (False, True, True, True),
+    "world_legacy": (True, True, True, False),
+    "world_legacy_fixed_base": (True, True, True, True),
 }
 
 
@@ -397,14 +426,58 @@ def test_cuda_wrapper_rejects_bad_inputs(models):
                          torch.device("cuda"))
 
 
+def card_table():
+    """RL_CARD_VARIANTS of csrc/physics_step.cu, in its order."""
+    with open(os.path.join(CP.CSRC_DIR, "physics_step.cu")) as f:
+        src = f.read()
+    body = src[src.index("#define RL_CARD_VARIANTS(X)"):]
+    body = body[:body.index("\n\n")]
+    return tuple(tuple(int(v) for v in m) for m in re.findall(
+        r"X\((\d+), (\d+), (\d), (\d), (\d), (\d)\)", body))
+
+
+def test_cuda_variant_table_matches_source():
+    """The card's table is RL_CARD_VARIANTS, and it holds every
+    combination that the JAX package's kernel takes for both limb layouts
+    in the repo: terrain, world boxes and the legacy contact model each on
+    or off, a fixed base with the legacy model; the implicit-damping input
+    is always given (zeros for none)."""
+    assert CP.CUDA_VARIANTS == card_table()
+    want = {(D, K, t, w, leg, fix) for (D, K) in ((3, 4), (1, 2))
+            for t in (0, 1) for w in (0, 1) for leg in (0, 1)
+            for fix in (0, 1) if leg or not fix}
+    assert set(CP.CUDA_VARIANTS) == want and len(CP.CUDA_VARIANTS) == 24
+    # the lane-order test runs every variant of the quadruped's layout
+    assert {(3, 4) + tuple(int(f) for f in v)
+            for v in LANE_VARIANTS.values()} == set(CP.CUDA_VARIANTS[:12])
+    names = {CP.variant_name(v) for v in CP.CUDA_VARIANTS}
+    assert len(names) == 24
+    assert CP.variant_name((3, 4, 1, 1, 1, 1)) == \
+        "physics_step_terrain_world_legacy_fixed_base"
+    assert CP.variant_name((1, 2, 0, 0, 0, 0)) == "physics_step_1x2"
+
+
+def assert_dispatched_and_cpu_refused(x, y, cst, layout, has_imp, **flags):
+    """The combination has an instance in the card's table, and on CPU
+    tensors launch_packed refuses only their device: nothing is built,
+    launched or counted."""
+    assert CP.variant_of(layout, **flags) in card_table()
+    k = CP.KERNEL
+    before = (k.launches, k.world_launches, k.legacy_launches,
+              k.fixed_base_launches, dict(k.variant_launches))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        k.launch_packed(x, y, cst, layout, has_imp, **flags)
+    assert (k.launches, k.world_launches, k.legacy_launches,
+            k.fixed_base_launches, k.variant_launches) == before
+
+
 @pytest.mark.parametrize("robot,with_imp,with_world", [
     ("hopper", True, False), ("go1", False, False), ("go1", True, True)])
 def test_cuda_launch_refuses_variants_not_built(models, robot, with_imp,
                                                 with_world):
-    """Only the quadruped layout with implicit damping is built for the
-    card, and the world boxes only on terrain; any other variant (here:
-    the hopper's layout, no damping input, the walls on the plane) is
-    refused before a build or a launch."""
+    """Combinations that earlier builds refused (the hopper's layout, no
+    damping input, the walls on the plane) now have an instance: the card
+    takes them, and on the CPU only the tensors' device is refused."""
     model = models[robot]
     state, params, tau, imp = torch_inputs(*physics_inputs(model, 4, 0,
                                                            "ground"))
@@ -415,11 +488,8 @@ def test_cuda_launch_refuses_variants_not_built(models, robot, with_imp,
     x = CP.pack_inputs(model, state, tau, params, imp, env_origin=origin)
     y = torch.empty((CP.out_channels(model), 4))
     cst = torch.from_numpy(CP.pack_constants(model, SimCfg(), layout, boxes))
-    before = (CP.KERNEL.launches, CP.KERNEL.world_launches)
-    with pytest.raises(NotImplementedError):
-        CP.KERNEL.launch_packed(x, y, cst, layout, with_imp,
-                                has_world=with_world)
-    assert (CP.KERNEL.launches, CP.KERNEL.world_launches) == before
+    assert_dispatched_and_cpu_refused(x, y, cst, layout, with_imp,
+                                      has_world=with_world)
 
 
 @pytest.mark.parametrize("legacy,fixed,terrain,world", [
@@ -430,24 +500,56 @@ def test_cuda_launch_refuses_variants_not_built(models, robot, with_imp,
 ])
 def test_cuda_launch_refuses_legacy_and_fixed_base_not_built(
         models, legacy, fixed, terrain, world):
-    """The card builds the legacy model on terrain and the legacy model
-    with a fixed base on terrain, without world boxes; any other
-    combination (here: legacy on the plane, a fixed base with the apparent
-    model, both on the plane, legacy with the walls) is refused before a
-    build or a launch, and nothing is counted."""
+    """The legacy model on the plane, both on the plane, and the legacy
+    model with the walls now have an instance (the CPU refuses only the
+    device); a fixed base with the apparent model is still refused as a
+    bad argument (NaN in the plain version, soa_physics.check_supported),
+    and nothing is counted."""
     model = models["mc"]
-    state, params, tau, imp = torch_inputs(*physics_inputs(model, 4, 0,
-                                                           "ground"))
     layout = CP.check_supported(model, SimCfg())
     x = torch.empty((10, 4))
     y = torch.empty((CP.out_channels(model), 4))
     cst = torch.from_numpy(CP.pack_constants(model, SimCfg(), layout))
-    k = CP.KERNEL
-    before = (k.launches, k.legacy_launches, k.fixed_base_launches)
-    # a fixed base with the apparent model is refused as a bad argument
-    # (soa_physics.check_supported), the rest as not built
-    with pytest.raises(ValueError if fixed and not legacy
-                       else NotImplementedError):
-        k.launch_packed(x, y, cst, layout, True, has_terrain=terrain,
-                        has_world=world, legacy=legacy, fixed_base=fixed)
-    assert (k.launches, k.legacy_launches, k.fixed_base_launches) == before
+    flags = dict(has_terrain=terrain, has_world=world, legacy=legacy,
+                 fixed_base=fixed)
+    if fixed and not legacy:
+        k = CP.KERNEL
+        before = (k.launches, k.legacy_launches, k.fixed_base_launches)
+        with pytest.raises(ValueError, match="fixed base"):
+            k.launch_packed(x, y, cst, layout, True, **flags)
+        assert (k.launches, k.legacy_launches,
+                k.fixed_base_launches) == before
+        assert CP.variant_of(layout, **flags) not in card_table()
+    else:
+        assert_dispatched_and_cpu_refused(x, y, cst, layout, True, **flags)
+
+
+@pytest.mark.parametrize("robot,terrain", [
+    ("hopper", False), ("hopper", True), ("mc", False), ("mc", True)])
+def test_host_kernel_zero_damping_is_bitwise(host_lib, models, robot,
+                                             terrain):
+    """The card builds every variant with the implicit-damping input only,
+    and a caller without one gets zeros: on the g++ build the instance
+    without the input (IMP false) and the one with zeros give the same
+    bits, for both layouts, on the plane and on terrain."""
+    model = models[robot]
+    kind = "hopper" if robot == "hopper" else "ground"
+    state, params, tau, imp = physics_inputs(model, 64, 18, kind)
+    grid = None
+    if terrain:
+        grid = step_grid()[1] if robot == "hopper" else generated_grid()[1]
+        if robot != "hopper":
+            state = on_terrain(state, grid, 19)
+    state, params, tau, imp = torch_inputs(state, params, tau, imp)
+    without = CP.physics_step_host(host_lib, model, SimCfg(), state, tau,
+                                   params, terrain=grid)
+    zeros = CP.physics_step_host(host_lib, model, SimCfg(), state, tau,
+                                 params, terrain=grid,
+                                 implicit_damp=torch.zeros_like(tau))
+    assert without.contact_report.abs().max() > 0.0
+    for a, b in zip(list(without.state) + [without.contact_report,
+                                           without.geom_pos],
+                    list(zeros.state) + [zeros.contact_report,
+                                         zeros.geom_pos]):
+        assert torch.isfinite(a).all()
+        assert torch.equal(a, b)

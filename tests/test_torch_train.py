@@ -48,7 +48,7 @@ from rapid_locomotion_rl_tpu_torch.utils.checkpoint import load_pytree
 
 RUN = os.path.join(RLTPU_ROOT_DIR, "runs", "r5_flagship")
 STATE = os.path.join(RUN, "checkpoints", "train_state_last.pkl")
-LEFT_OUT = {"--mesh", "--distributed"}
+LEFT_OUT = set()
 
 
 def _script(name):
