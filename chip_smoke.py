@@ -172,7 +172,40 @@ run one rank of the ``sharded`` phase; the smoke run takes no argument.)
              Phases 16-20 each print their seconds, K1 launches and peak
              memory; the launches of 18-20 join the plane and terrain
              entries of the kernels line.
-21. result:  the kernels line (every variant built for the card, with its
+21. capability: the locomotion-capability gate
+             (scripts/torch_capability.py, the JAX package's
+             tests/test_locomotion_capability.py at its sizes and
+             thresholds) on the plane: an open-loop trot of 4 envs moves
+             >= 0.6 m in 300 steps with no done and a final height in
+             (0.15, 0.45) m; runs/r4_flagship_4000's policy (teacher, 8
+             envs, vx 1.0, 300 steps) makes a median >= 3.6 m; runs/
+             ab7_ent0_fixedphys2's (8 envs, command (-1.5, 0, 2.5)) keeps
+             a top-4 mean speed > 0.5 m/s over steps 100-300. 3,600
+             plane-variant launches; the variant held to its plain version
+             on the flagship gate's end state.
+22. drift-sweep: scripts/exp_drift_sweep_cuda.py's 72 trot points as 72
+             envs of one rollout, the first arm (legacy fit, patch 0.01),
+             300 steps: 1,200 plane-variant launches, finite, the best
+             forward and backward gaits printed.
+23. survival: scripts/diag_survival_cuda.py on config_mini_cheetah at its
+             4000 envs on the trimesh with full DR: zero and Gaussian (std
+             1) actions, 100 steps each (800 terrain-variant launches), the
+             cause breakdowns printed; the variant held on the Gaussian
+             arm's end state.
+24. terrain-arms: scripts/bench_terrain_cuda.py at 4000 envs, one timed
+             24-step scan an arm (mm, take, direct, plane; each arm's
+             window printed): ms and env-steps/s per arm, the terrain's
+             cost over the plane.
+25. diag-hlp: scripts/diag_hlp_cuda.py's zero, straight and pcontrol arms
+             on the frozen runs/r4_flagship_4000 student, 16 envs, 100
+             steps each (1,200 terrain-variant launches), finite.
+26. tracking-only: scripts/exp_tracking_only_cuda.py, 2048 envs on the
+             plane, 2 Runner iterations (192 plane-variant launches):
+             finite losses, KL, LR and parameters.
+             Phases 21-26 each print their seconds, K1 launches and peak
+             memory; their launches join the plane and terrain entries of
+             the kernels line.
+27. result:  the kernels line (every variant built for the card, with its
              launches on these paths; the run fails if one has none), the
              card line, and the contract line.
 """
@@ -978,7 +1011,6 @@ def phase_rollout(dev):
     from rapid_locomotion_rl_tpu_torch.envs.legged_robot import LeggedRobotEnv
     from rapid_locomotion_rl_tpu_torch.learn.ppo import PPOArgs, rollout
     from rapid_locomotion_rl_tpu_torch.ops import cuda_physics as CP
-    from rapid_locomotion_rl_tpu_torch.ops.dynamics import PhysParams
     from rapid_locomotion_rl_tpu_torch.sampler import Sampler
     cfg, _ = go1_model()
     if cfg.env.num_envs != N_ENVS:
@@ -1023,11 +1055,8 @@ def phase_rollout(dev):
     torch.cuda.synchronize()
     wall2 = time.time() - t
     layout = CP.check_supported(env.model, cfg.sim)
-    dr = state.dr
-    imp = (env.d_gains * dr.Kd_factors + env._dt_sub * env.p_gains
-           * dr.Kp_factors) * dr.motor_strengths
-    x = CP.pack_inputs(env.model, state.sim, state.torques, PhysParams(
-        dr.friction, dr.restitution, dr.payloads, dr.com_displacements), imp)
+    params, imp, _ = env.physics_inputs(state)
+    x = CP.pack_inputs(env.model, state.sim, state.torques, params, imp)
     y = torch.empty((CP.out_channels(env.model), N_ENVS), device=dev)
     cst = CP.KERNEL.table(env.model, cfg.sim, layout, dev)
     k_ms = time_ms(lambda: CP.KERNEL.launch_packed(x, y, cst, layout, True),
@@ -1493,7 +1522,6 @@ def phase_train(dev):
     import numpy as np
     import torch
     from rapid_locomotion_rl_tpu_torch.ops import cuda_physics as CP
-    from rapid_locomotion_rl_tpu_torch.ops.dynamics import PhysParams
     mod = script("train_cuda.py")
     logdir = run_dir("train")
     argv = ["--resume", MC_STATE, "--iterations", str(ITERATIONS),
@@ -1595,14 +1623,10 @@ def phase_train(dev):
     grid = env.collision_grid
     state = runner.env_state
     layout = CP.check_supported(env.model, cfg.sim, terrain=grid)
-    dr = state.dr
-    imp = (env.d_gains * dr.Kd_factors + env._dt_sub * env.p_gains
-           * dr.Kp_factors) * dr.motor_strengths
-    win = env._window(grid, state.sim.base_pos[:, 0], state.sim.base_pos[:, 1])
+    params, imp, win = env.physics_inputs(state)
     gt = CP.geom_terrain_at(env.model, cfg.sim, layout, state.sim, grid, win)
-    x = CP.pack_inputs(env.model, state.sim, state.torques, PhysParams(
-        dr.friction, dr.restitution, dr.payloads, dr.com_displacements), imp,
-        grid, gt)
+    x = CP.pack_inputs(env.model, state.sim, state.torques, params, imp,
+                       grid, gt)
     y = torch.empty((CP.out_channels(env.model), env.num_envs), device=dev)
     cst = CP.KERNEL.table(env.model, cfg.sim, layout, dev)
     k_ms = time_ms(
@@ -1663,7 +1687,8 @@ def check_finite(phase, runner):
             raise AssertionError(f"{phase}: {k} = {m.get(k)} is not finite")
     if not all(torch.isfinite(p).all() for p in runner.ac.parameters()):
         raise AssertionError(f"{phase}: non-finite parameters")
-    for name, v in runner.env_state.ll.sim._asdict().items():
+    ll = getattr(runner.env_state, "ll", runner.env_state)  # HLP or not
+    for name, v in ll.sim._asdict().items():
         if not torch.isfinite(v).all():
             raise AssertionError(f"{phase}: sim state {name} is not finite")
     if not torch.isfinite(runner.env_state.obs).all():
@@ -1884,12 +1909,8 @@ def check_export(runner, logdir):
 def phys_inputs(env, state):
     """The physics call's inputs at an env state: its sim state, last
     torques, DR parameters and implicit-PD impedance."""
-    from rapid_locomotion_rl_tpu_torch.ops.dynamics import PhysParams
-    dr = state.dr
-    imp = (env.d_gains * dr.Kd_factors + env._dt_sub * env.p_gains
-           * dr.Kp_factors) * dr.motor_strengths
-    return state.sim, state.torques, PhysParams(
-        dr.friction, dr.restitution, dr.payloads, dr.com_displacements), imp
+    params, imp, _ = env.physics_inputs(state)
+    return state.sim, state.torques, params, imp
 
 
 def hold_on_env(phase, env, state):
@@ -2095,7 +2116,6 @@ def phase_hlp_world(dev):
     states), geom positions at 1e-5."""
     import torch
     from rapid_locomotion_rl_tpu_torch.ops import cuda_physics as CP
-    from rapid_locomotion_rl_tpu_torch.ops.dynamics import PhysParams
     from rapid_locomotion_rl_tpu_torch.ops.soa_physics import physics_step_soa
     mod = script("high_level_play_cuda.py")
     argv = HLP_RECIPE + ["--world", "--iterations", "1", "--logdir",
@@ -2117,13 +2137,8 @@ def phase_hlp_world(dev):
     # the walls' share of the contact report at the final state: one call
     # with the corridor and one without (not counted)
     ll = runner.env_state.ll
-    dr = ll.dr
-    imp = (ll_env.d_gains * dr.Kd_factors + ll_env._dt_sub * ll_env.p_gains
-           * dr.Kp_factors) * dr.motor_strengths
-    pp = PhysParams(dr.friction, dr.restitution, dr.payloads,
-                    dr.com_displacements)
+    pp, imp, win = ll_env.physics_inputs(ll)
     grid = ll_env.collision_grid
-    win = ll_env._window(grid, ll.sim.base_pos[:, 0], ll.sim.base_pos[:, 1])
     kw = dict(terrain=grid, implicit_damp=imp, terrain_window=win)
     walled = CP.physics_step_cuda(
         ll_env.model, ll_env.cfg.sim, ll.sim, ll.torques, pp,
@@ -2600,6 +2615,173 @@ def phase_vecenv(dev):
     return dict(launches=counts[0], peak_bytes=peak)
 
 
+# ---------------------------------------------------------------------------
+# the locomotion-capability gate and the research scripts
+# ---------------------------------------------------------------------------
+SWEEP_STEPS = 300
+SURVIVAL_STEPS = 100
+DIAG_HLP_STEPS = 100
+TRACKING_ENVS = 2048
+
+
+def phase_capability(dev):
+    """The three gates of scripts/torch_capability.py at the JAX test's
+    sizes and thresholds; each raises when it fails."""
+    t0 = phase_start()
+    gate = script("torch_capability.py")
+    zero_counts()
+    trot = gate.gate_trot(str(dev))
+    fl = gate.gate_flagship(str(dev))
+    walk = gate.gate_walks(str(dev))
+    counts = read_counts()
+    check_counts("capability", counts, plane=3 * gate.STEPS
+                 * fl["env"].cfg.control.decimation)
+    finite_state("capability", fl["state"])
+    finite_state("capability", walk["state"])
+    say("capability", f"trot dx {trot['dx']:+.3f} m (|dx| >= {gate.TROT_MIN_DX}),"
+        f" dones {trot['dones']:.0f}, final z {trot['z']:.3f} m (in "
+        f"{gate.TROT_Z}); flagship median dx {fl['median']:.3f} m (>= "
+        f"{gate.FLAGSHIP_MIN_MEDIAN_DX}); ab7 top-4 mean speed "
+        f"{walk['top4']:.3f} m/s (> {gate.WALK_MIN_TOP4_SPEED}); "
+        f"{counts[0]} plane-variant launches")
+    k = hold_on_env("capability", fl["env"], fl["state"])
+    peak = phase_end("capability", t0, counts[0])
+    k.update(launches=counts[0], peak_bytes=peak, trot=trot,
+             median=fl["median"], top4=walk["top4"])
+    return k
+
+
+def phase_drift_sweep(dev):
+    """exp_drift_sweep_cuda.py's 72 points, one arm, SWEEP_STEPS steps."""
+    import numpy as np
+    t0 = phase_start()
+    mod = script("exp_drift_sweep_cuda.py")
+    P = mod.sweep_params()
+    fit, patch = mod.ARMS[0]
+    zero_counts()
+    dx, nd, z, ok = mod.run_arm(fit, patch, P, steps=SWEEP_STEPS,
+                                device=str(dev))
+    counts = read_counts()
+    check_counts("drift-sweep", counts, plane=SWEEP_STEPS * 4)
+    if P.shape[0] != 72 or not (np.isfinite(dx).all()
+                                and np.isfinite(z).all()):
+        raise AssertionError(f"drift-sweep: {P.shape[0]} points, finite "
+                             f"{np.isfinite(dx).all()}")
+    say("drift-sweep", f"{P.shape[0]} points x {SWEEP_STEPS} steps "
+        f"({fit}, r={patch}): {counts[0]} plane-variant launches; alive "
+        f"{int(ok.sum())}/{len(ok)}, dx in [{dx.min():+.3f}, "
+        f"{dx.max():+.3f}] m")
+    peak = phase_end("drift-sweep", t0, counts[0])
+    return dict(launches=counts[0], peak_bytes=peak, alive=int(ok.sum()),
+                best_fwd=float(np.where(ok, dx, -np.inf).max()),
+                best_bwd=float(np.where(ok, dx, np.inf).min()))
+
+
+def phase_survival(dev):
+    """diag_survival_cuda.py on the flagship config at 4000 envs (trimesh,
+    full DR): zero and Gaussian actions, SURVIVAL_STEPS steps each."""
+    import numpy as np
+    t0 = phase_start()
+    mod = script("diag_survival_cuda.py")
+    env, cfg = mod.build_env(N_MC, False, False, str(dev))
+    if (cfg.terrain.mesh_type != "trimesh"
+            or not cfg.domain_rand.randomize_friction):
+        raise AssertionError("survival: not the flagship's trimesh and DR")
+    zero_counts()
+    ends = {}
+    for label, std, seed in (("zero actions", 0.0, 0),
+                             ("random policy std=1.0", 1.0, 7)):
+        outs, state = mod.run(env, SURVIVAL_STEPS, std, seed=seed)
+        mod.summarize(env, outs, label)
+        if not np.isfinite(outs["base_z"]).all():
+            raise AssertionError(f"survival: {label}: base z not finite")
+        d = outs["done"] & ~outs["timeout"]
+        ends[label] = (int(outs["done"].sum()), int(d.sum()))
+    counts = read_counts()
+    check_counts("survival", counts, terrain=2 * SURVIVAL_STEPS
+                 * cfg.control.decimation)
+    finite_state("survival", state)
+    say("survival", f"{N_MC} envs x {SURVIVAL_STEPS} steps an arm: "
+        f"{counts[1]} terrain-variant launches; (episode ends, contact "
+        f"terminations): {ends}")
+    k = hold_on_env("survival", env, state)
+    peak = phase_end("survival", t0, counts[1])
+    k.update(launches=counts[1], peak_bytes=peak, ends=ends)
+    return k
+
+
+def phase_terrain_arms(dev):
+    """bench_terrain_cuda.py at 4000 envs, one timed scan an arm."""
+    t0 = phase_start()
+    mod = script("bench_terrain_cuda.py")
+    zero_counts()
+    res = mod.main(["--num-envs", str(N_MC), "--iters", "1", "--device",
+                    str(dev)])
+    counts = read_counts()
+    per_arm = 2 * mod.STEPS * 4           # the warm-up and the timed scan
+    check_counts("terrain-arms", counts, plane=per_arm,
+                 terrain=3 * per_arm)
+    say("terrain-arms", ", ".join(
+        f"{arm} {ms:.1f} ms ({N_MC * mod.STEPS / ms * 1e3:.0f} env-steps/s, "
+        f"window {win})" for arm, (ms, win) in res.items())
+        + f" | {card_line()}")
+    peak = phase_end("terrain-arms", t0, counts[0] + counts[1])
+    return dict(launches_plane=counts[0], launches_terrain=counts[1],
+                peak_bytes=peak, ms={a: ms for a, (ms, _) in res.items()})
+
+
+def phase_diag_hlp(dev):
+    """diag_hlp_cuda.py's three arms, 16 envs, DIAG_HLP_STEPS steps."""
+    import numpy as np
+    import torch
+    t0 = phase_start()
+    mod = script("diag_hlp_cuda.py")
+    zero_counts()
+    env, out = mod.main(["--ll-run", LL_RUN, "--num-envs", "16", "--steps",
+                         str(DIAG_HLP_STEPS), "--device", str(dev)])
+    counts = read_counts()
+    check_counts("diag-hlp", counts, terrain=3 * DIAG_HLP_STEPS
+                 * env.ll_env.cfg.control.decimation)
+    for arm, r in out.items():
+        finite_state("diag-hlp", r["state"].ll)
+        if not torch.isfinite(r["state"].obs).all():
+            raise AssertionError(f"diag-hlp: {arm}: observations not finite")
+    say("diag-hlp", f"3 arms x {DIAG_HLP_STEPS} steps x 16 envs: "
+        f"{counts[1]} terrain-variant launches; (falls, goals, median max "
+        f"x): " + ", ".join(f"{a} ({r['falls'].sum()}, {r['goals']}, "
+                            f"{np.median(r['max_x']):.2f})"
+                            for a, r in out.items()))
+    peak = phase_end("diag-hlp", t0, counts[1])
+    return dict(launches=counts[1], peak_bytes=peak)
+
+
+def phase_tracking_only(dev):
+    """exp_tracking_only_cuda.py: 2048 envs, 2 iterations."""
+    t0 = phase_start()
+    mod = script("exp_tracking_only_cuda.py")
+    cfg = mod.tracking_only_cfg()
+    if cfg.env.num_envs != TRACKING_ENVS:
+        raise AssertionError(f"tracking-only: {cfg.env.num_envs} envs")
+    zero_counts()
+    runner = mod.run(ITERATIONS, 0.0, run_dir("tracking_only"),
+                     device=str(dev), cfg=cfg)
+    counts = read_counts()
+    check_counts("tracking-only", counts, plane=ITERATIONS * HORIZON
+                 * cfg.control.decimation)
+    check_finite("tracking-only", runner)
+    m = runner.last_metrics
+    steps_s = [HORIZON * TRACKING_ENVS / (x["rollout_s"] + x["update_s"])
+               for x in runner.timings]
+    say("tracking-only", f"{ITERATIONS} iterations x {TRACKING_ENVS} envs: "
+        f"{counts[0]} plane-variant launches; value loss "
+        f"{m['mean_value_loss']:.4f}, surrogate "
+        f"{m['mean_surrogate_loss']:.4f}, KL {m['kl']:.4f}, LR "
+        f"{m['lr']:.3g}; env-steps/s per iteration "
+        + ", ".join(f"{x:.0f}" for x in steps_s))
+    peak = phase_end("tracking-only", t0, counts[0])
+    return dict(launches=counts[0], peak_bytes=peak, env_steps_per_s=steps_s)
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser()
@@ -2640,6 +2822,12 @@ def main(argv=None) -> int:
     hs = phase_heights(dev, tc, grid)
     del grid
     ve = phase_vecenv(dev)
+    cap = phase_capability(dev)
+    sw = phase_drift_sweep(dev)
+    sv = phase_survival(dev)
+    ta = phase_terrain_arms(dev)
+    dh = phase_diag_hlp(dev)
+    to = phase_tracking_only(dev)
     say("result", "all phases passed")
     say("result", "AoS step (plain PyTorch) ms/call at 4000 envs: "
         + ", ".join(f"{cm} {aos[cm]['ms']:.1f} ({aos[cm]['ops']} aten "
@@ -2664,10 +2852,20 @@ def main(argv=None) -> int:
                                        new)))
     say("result", f"sharded flagship iteration at 4000 envs: one process "
         f"{sh['one']:.3f}s, two gloo ranks on one card {sh['two']:.3f}s")
+    say("result", "K1 on the research phases' end states: " + ", ".join(
+        f"{name} N={k['n']}: {k['launches']} launches, {k['ms']:.4f} "
+        f"ms/launch (plain {k['plain_ms']:.1f}, bound {k['bound_ms']:.5f}), "
+        f"max |err| {k['max_abs_err']:.3g}"
+        for name, k in (("capability", cap), ("survival", sv)))
+        + "; terrain arms ms per 24-step scan: " + ", ".join(
+            f"{a} {v:.1f}" for a, v in ta["ms"].items()))
     launches = {
-        "plane": ro["launches"] + mj["launches"] + ve["launches"],
+        "plane": ro["launches"] + mj["launches"] + ve["launches"]
+        + cap["launches"] + sw["launches"] + ta["launches_plane"]
+        + to["launches"],
         "terrain": tr["launches"] + hl["launches"]
-        + sum(k["launches"] for k in new) + hs["launches"],
+        + sum(k["launches"] for k in new) + hs["launches"]
+        + sv["launches"] + ta["launches_terrain"] + dh["launches"],
         "world": hw["launches"], "legacy": kl["launches"],
         "fixed_base": kf["launches"], "plane_legacy": gl["launches"],
         "terrain_world_legacy": cl["launches"], **ev}

@@ -702,6 +702,35 @@ class LeggedRobotEnv:
         return torch.cat([cmds[:, :2] * keep.to(cmds.dtype), cmds[:, 2:]],
                          dim=-1)
 
+    def physics_inputs(self, state: EnvState):
+        """What a step's physics calls take besides the sim state and the
+        torques: the DR's PhysParams, the implicit-PD drive impedance (the
+        ABA's joint_impedance diagonal) and the terrain window (None off a
+        grid), all at ``state``."""
+        cfg = self.cfg
+        dr = state.dr
+        phys_params = PhysParams(
+            friction=dr.friction, restitution=dr.restitution,
+            payload=dr.payloads, com_displacement=dr.com_displacements)
+        ct = cfg.control.control_type
+        if getattr(cfg.sim, "implicit_pd", True) and ct == "P":
+            imp = (self.d_gains * dr.Kd_factors
+                   + self._dt_sub * self.p_gains * dr.Kp_factors
+                   ) * dr.motor_strengths
+        elif getattr(cfg.sim, "implicit_pd", True) and ct == "V":
+            imp = (self.p_gains + self.d_gains / cfg.sim.dt
+                   ) * dr.motor_strengths
+        else:
+            imp = torch.zeros((self.num_envs, self.num_dof),
+                              device=self.device)
+        # the window of the terrain grid that the step's physics calls look
+        # up through, placed once at the step's entry base position (+8
+        # cells of the square's slack cover the base's drift)
+        base = state.sim.base_pos
+        window = (None if self._window is None else self._window(
+            self.collision_grid, base[:, 0], base[:, 1]))
+        return phys_params, imp, window
+
     def _phys(self, sim, torques, phys_params, imp, window, origins):
         walls = self.world_boxes is not None
         if self.physics_impl == "aos":
@@ -786,34 +815,11 @@ class LeggedRobotEnv:
         actions = torch.clamp(actions, -clip_a, clip_a)
 
         # ---- decimated PD control + physics ------------------------------
-        phys_params = PhysParams(
-            friction=state.dr.friction, restitution=state.dr.restitution,
-            payload=state.dr.payloads,
-            com_displacement=state.dr.com_displacements)
+        phys_params, imp, window = self.physics_inputs(state)
         sim = state.sim
         torques = state.torques
         target = state.joint_pos_target
         report = state.contact_report
-
-        # implicit-PD drive impedance (the ABA's joint_impedance diagonal)
-        ct = cfg.control.control_type
-        if not getattr(cfg.sim, "implicit_pd", True):
-            imp = torch.zeros((N, self.num_dof), device=dev)
-        elif ct == "P":
-            imp = (self.d_gains * state.dr.Kd_factors
-                   + self._dt_sub * self.p_gains * state.dr.Kp_factors
-                   ) * state.dr.motor_strengths
-        elif ct == "V":
-            imp = (self.p_gains + self.d_gains / cfg.sim.dt
-                   ) * state.dr.motor_strengths
-        else:
-            imp = torch.zeros((N, self.num_dof), device=dev)
-
-        # the window of the terrain grid that this step's physics calls
-        # look up through, placed once at the step's entry base position
-        # (+8 cells of the square's slack cover the base's drift)
-        window = (None if self._window is None else self._window(
-            self.collision_grid, sim.base_pos[:, 0], sim.base_pos[:, 1]))
 
         for _ in range(cfg.control.decimation):
             torques, target = self._compute_torques(

@@ -84,7 +84,6 @@ def main() -> int:
     from rapid_locomotion_rl_tpu_torch.learn import ppo as P
     from rapid_locomotion_rl_tpu_torch.models.networks import ACArgs, ActorCritic
     from rapid_locomotion_rl_tpu_torch.ops import cuda_physics as CP
-    from rapid_locomotion_rl_tpu_torch.ops.dynamics import PhysParams
     from rapid_locomotion_rl_tpu_torch.sampler import Sampler
     from rapid_locomotion_rl_tpu_torch.utils.checkpoint import load_pytree
 
@@ -134,12 +133,7 @@ def main() -> int:
     grid = env.collision_grid
     layout = CP.check_supported(env.model, cfg.sim, terrain=grid)
     sim = state.sim
-    win = env._window(grid, sim.base_pos[:, 0], sim.base_pos[:, 1])
-    dr = state.dr
-    imp = (env.d_gains * dr.Kd_factors + env._dt_sub * env.p_gains
-           * dr.Kp_factors) * dr.motor_strengths
-    params = PhysParams(dr.friction, dr.restitution, dr.payloads,
-                        dr.com_displacements)
+    params, imp, win = env.physics_inputs(state)
     gt = CP.geom_terrain_at(env.model, cfg.sim, layout, sim, grid, win)
     x = CP.pack_inputs(env.model, sim, state.torques, params, imp, grid, gt)
     y = torch.empty((CP.out_channels(env.model), n_envs), device=dev)

@@ -68,7 +68,13 @@ def test_port_imports_no_jax():
     assert "BAD []" in out.stdout, out.stdout
     for name in ("eval_sweep_cuda.py", "high_level_play_cuda.py",
                  "hlp_play_cuda.py", "play_cuda.py", "test_cuda.py",
-                 "train_cuda.py"):
+                 "train_cuda.py", "tune_trot_cuda.py",
+                 "exp_drift_ab_cuda.py", "exp_drift_sweep_cuda.py",
+                 "diag_survival_cuda.py", "diag_contact_cuda.py",
+                 "exp_direction_probe_cuda.py", "sim2sim_cuda.py",
+                 "diag_propulsion_cuda.py", "diag_hlp_cuda.py",
+                 "diag_hlp_rollout_cuda.py", "exp_tracking_only_cuda.py",
+                 "bench_terrain_cuda.py", "profile_rollout_cuda.py"):
         assert f"SCRIPT {name}" in out.stdout, name
 
 
