@@ -205,7 +205,16 @@ run one rank of the ``sharded`` phase; the smoke run takes no argument.)
              Phases 21-26 each print their seconds, K1 launches and peak
              memory; their launches join the plane and terrain entries of
              the kernels line.
-27. result:  the kernels line (every variant built for the card, with its
+27. bench:   bench_cuda.py's main path in-process: _bench_size at the
+             flagship's 4000 envs from a fresh policy, 2 warm-up and
+             BENCH_ITERS timed iterations through learn/ppo.py's
+             make_train_functions, then its 5 + 5 split calls; its figure
+             through _emit into a buffer: one JSON line with bench.py's
+             keys, a finite value above 0; the terrain variant 96 launches
+             a timed iteration and no other; K1 held on the bench's end
+             state as in phases 12-15; the bench's preflight once (a 4x4
+             product in a spawned process, the card line).
+28. result:  the kernels line (every variant built for the card, with its
              launches on these paths; the run fails if one has none), the
              card line, and the contract line.
 """
@@ -2782,6 +2791,50 @@ def phase_tracking_only(dev):
     return dict(launches=counts[0], peak_bytes=peak, env_steps_per_s=steps_s)
 
 
+BENCH_ITERS = 3
+
+
+def phase_bench(dev):
+    """bench_cuda.py's _bench_size, _emit and _preflight in-process."""
+    import contextlib
+    import io
+    import math
+    import bench_cuda
+    t0 = phase_start()
+    stats = {}
+    zero_counts()
+    v = bench_cuda._bench_size(N_MC, HORIZON, n_iter=BENCH_ITERS,
+                               log=lambda m: say("bench", m),
+                               device=str(dev), stats=stats)
+    counts = read_counts()
+    # the bench zeroes the counts before its timed block: those iterations
+    # and the 5 rollouts of its split are counted here (96 launches each)
+    per_iter = HORIZON * stats["env"].cfg.control.decimation
+    check_counts("bench", counts, terrain=(BENCH_ITERS + 5) * per_iter)
+    if stats["k1_per_iter"] != {"physics_step_terrain": per_iter}:
+        raise AssertionError(f"bench: K1 launches per timed iteration "
+                             f"{stats['k1_per_iter']}, want {per_iter} "
+                             f"terrain")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        bench_cuda._emit(v)
+    lines = buf.getvalue().splitlines()
+    line = json.loads(lines[0])
+    if (len(lines) != 1 or set(line) != {"metric", "value", "unit",
+                                         "vs_baseline"}
+            or not (math.isfinite(line["value"]) and line["value"] > 0)):
+        raise AssertionError(f"bench: _emit wrote {buf.getvalue()!r}")
+    finite_state("bench", stats["env_state"])
+    say("bench", f"line {lines[0]}; {counts[1]} terrain-variant launches")
+    k = hold_on_env("bench", stats["env"], stats["env_state"])
+    bench_cuda._preflight(lambda m: say("bench", m))
+    peak = phase_end("bench", t0, counts[1])
+    k.update(launches=counts[1], peak_bytes=peak, env_steps_per_s=v,
+             iter_ms=stats["iter_ms"], rollout_ms=stats["rollout_ms"],
+             update_ms=stats["update_ms"])
+    return k
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser()
@@ -2828,6 +2881,7 @@ def main(argv=None) -> int:
     ta = phase_terrain_arms(dev)
     dh = phase_diag_hlp(dev)
     to = phase_tracking_only(dev)
+    bn = phase_bench(dev)
     say("result", "all phases passed")
     say("result", "AoS step (plain PyTorch) ms/call at 4000 envs: "
         + ", ".join(f"{cm} {aos[cm]['ms']:.1f} ({aos[cm]['ops']} aten "
@@ -2859,13 +2913,21 @@ def main(argv=None) -> int:
         for name, k in (("capability", cap), ("survival", sv)))
         + "; terrain arms ms per 24-step scan: " + ", ".join(
             f"{a} {v:.1f}" for a, v in ta["ms"].items()))
+    say("result", f"bench at {N_MC} envs, {BENCH_ITERS} timed iterations: "
+        f"{bn['env_steps_per_s']:.0f} env-steps/s, iteration ms "
+        + ", ".join(f"{x:.1f}" for x in bn["iter_ms"])
+        + f" (split: rollout {bn['rollout_ms']:.1f} + update "
+        f"{bn['update_ms']:.1f}); K1 terrain on its end state "
+        f"{bn['ms']:.4f} ms/launch (plain {bn['plain_ms']:.1f}, bound "
+        f"{bn['bound_ms']:.5f}), max |err| {bn['max_abs_err']:.3g}")
     launches = {
         "plane": ro["launches"] + mj["launches"] + ve["launches"]
         + cap["launches"] + sw["launches"] + ta["launches_plane"]
         + to["launches"],
         "terrain": tr["launches"] + hl["launches"]
         + sum(k["launches"] for k in new) + hs["launches"]
-        + sv["launches"] + ta["launches_terrain"] + dh["launches"],
+        + sv["launches"] + ta["launches_terrain"] + dh["launches"]
+        + bn["launches"],
         "world": hw["launches"], "legacy": kl["launches"],
         "fixed_base": kf["launches"], "plane_legacy": gl["launches"],
         "terrain_world_legacy": cl["launches"], **ev}

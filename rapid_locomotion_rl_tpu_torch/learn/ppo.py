@@ -10,7 +10,12 @@
   minibatch's KL, gradients clipped to a global norm, Adam applied at the
   carried learning rate, and the adaptation module's distillation step on
   its own Adam after each policy step;
-- :func:`train_iteration` composes them (JAX ``make_train_iteration``).
+- :func:`make_train_functions` returns the two halves of an iteration,
+  ``(rollout_gae, update)``, as JAX's does;
+- :func:`train_iteration` composes them. It stands for JAX's
+  ``make_train_iteration`` without its ``split`` switch, which picks
+  between one fused XLA program and two separately jitted halves: eager
+  PyTorch runs the halves as they are, so there is nothing to choose.
 
 On an env whose env axis is sharded over ranks (its ``shard``,
 :mod:`..parallel.sharding`) each rank rolls out its own envs, and every
@@ -406,34 +411,70 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+def make_train_functions(env, ac: ActorCritic, ppo_args: PPOArgs,
+                         num_steps_per_env: int, eval_expert: bool = False):
+    """The two halves of a training iteration, ``(rollout_gae, update)``
+    (the JAX package's ``make_train_functions``).
+
+    - ``rollout_gae(env_state, sampler)`` returns ``(env_state, traj,
+      advantages, returns, metrics)``; the metrics hold the rollout's
+      aggregates and env 0's ``_render/*`` pose log.
+    - ``update(ppo_state, traj, advantages, returns, sampler,
+      entropy_coef=None)`` returns ``(ppo_state, metrics)``; it takes the
+      curriculum-bin count from the env (none without the adaptation
+      module) and, on a sharded env, the env's ``shard``.
+
+    JAX's ``rollout_gae`` takes the parameters as an argument; here they
+    live in ``ac`` and ``update`` changes them in place, so ``rollout_gae``
+    takes none and always rolls out the current policy."""
+    shard = getattr(env, "shard", None)
+    nbins = (env.curriculum_grid.num_bins
+             if getattr(env, "curriculum_grid", None) is not None
+             and ac.args.use_latent else 0)
+
+    def rollout_gae(env_state, sampler):
+        env_state, traj, infos = rollout(env, ac, ppo_args, env_state,
+                                         sampler, num_steps_per_env,
+                                         eval_expert)
+        with torch.no_grad():
+            last_values = ac.evaluate(env_state.obs,
+                                      env_state.privileged_obs)
+        adv, ret = compute_gae(traj, last_values, ppo_args.gamma,
+                               ppo_args.lam)
+        metrics = _aggregate_rollout_metrics(
+            traj, infos, shard, getattr(env, "REPLICATED_INFO", ()))
+        return env_state, traj, adv, ret, metrics
+
+    def update(ppo_state: PPOState, traj, advantages, returns, sampler,
+               entropy_coef=None):
+        return ppo_update(ac, ppo_args, ppo_state, traj, advantages,
+                          returns, sampler, env.num_train_envs,
+                          num_curriculum_bins=nbins,
+                          entropy_coef=entropy_coef, shard=shard)
+
+    return rollout_gae, update
+
+
 def train_iteration(env, ac: ActorCritic, ppo_args: PPOArgs, env_state,
                     ppo_state: PPOState, sampler, entropy_coef=None,
                     num_steps: int = 24, timings: Optional[Dict] = None,
                     eval_expert: bool = False):
-    """One training iteration: rollout, GAE, update. Returns the new env
-    state, the new PPO state and the rollout and update metrics. With
-    ``timings`` (a dict), the device is synchronised after each half and
-    their wall times are stored under ``rollout_s`` and ``update_s``."""
+    """One training iteration: :func:`make_train_functions`' rollout+GAE
+    half, then its update half, both drawing from ``sampler``. Returns the
+    new env state, the new PPO state and the rollout and update metrics.
+    With ``timings`` (a dict), the device is synchronised after each half
+    and their wall times are stored under ``rollout_s`` and
+    ``update_s``."""
+    rollout_gae, update = make_train_functions(env, ac, ppo_args, num_steps,
+                                               eval_expert)
     t0 = time.perf_counter()
-    env_state, traj, infos = rollout(env, ac, ppo_args, env_state, sampler,
-                                     num_steps, eval_expert)
-    with torch.no_grad():
-        last_values = ac.evaluate(env_state.obs, env_state.privileged_obs)
-    adv, ret = compute_gae(traj, last_values, ppo_args.gamma, ppo_args.lam)
-    shard = getattr(env, "shard", None)
-    metrics = _aggregate_rollout_metrics(
-        traj, infos, shard, getattr(env, "REPLICATED_INFO", ()))
+    env_state, traj, adv, ret, metrics = rollout_gae(env_state, sampler)
     if timings is not None:
         _sync(traj.obs.device)
         t1 = time.perf_counter()
         timings["rollout_s"] = t1 - t0
-    nbins = (env.curriculum_grid.num_bins
-             if getattr(env, "curriculum_grid", None) is not None
-             and ac.args.use_latent else 0)
-    ppo_state, update_metrics = ppo_update(
-        ac, ppo_args, ppo_state, traj, adv, ret, sampler,
-        env.num_train_envs, num_curriculum_bins=nbins,
-        entropy_coef=entropy_coef, shard=shard)
+    ppo_state, update_metrics = update(ppo_state, traj, adv, ret, sampler,
+                                       entropy_coef)
     if timings is not None:
         _sync(traj.obs.device)
         timings["update_s"] = time.perf_counter() - t1

@@ -64,9 +64,8 @@ def build(num_envs, device, plane=False):
     from play_cuda import check_device
     from rapid_locomotion_rl_tpu_torch.envs.legged_robot import \
         LeggedRobotEnv
-    from rapid_locomotion_rl_tpu_torch.learn.ppo import (PPOArgs,
-                                                         compute_gae,
-                                                         rollout)
+    from rapid_locomotion_rl_tpu_torch.learn.ppo import (
+        PPOArgs, make_train_functions)
     from rapid_locomotion_rl_tpu_torch.models.networks import (ACArgs,
                                                                ActorCritic)
     from rapid_locomotion_rl_tpu_torch.sampler import Sampler
@@ -77,14 +76,10 @@ def build(num_envs, device, plane=False):
                      env.num_obs_history, env.num_actions,
                      ACArgs()).to(dev).requires_grad_(False)
     env_state = env.initial_state(Sampler(0, dev))
-    args = PPOArgs()
+    half, _ = make_train_functions(env, ac, PPOArgs(), T)
 
-    @torch.no_grad()
     def rollout_gae(state):
-        state, traj, infos = rollout(env, ac, args, state,
-                                     Sampler(1, dev), T)
-        last = ac.evaluate(state.obs, state.privileged_obs)
-        return compute_gae(traj, last, args.gamma, args.lam)
+        return half(state, Sampler(1, dev))
     return env, ac, env_state, rollout_gae
 
 

@@ -2,13 +2,14 @@
 """Where the time of the PyTorch port's flagship training iteration goes,
 on one GPU.
 
-    python3 scripts/torch_train_profile.py
+    python3 scripts/torch_train_profile.py [--num-envs N] [--device cuda|cpu]
 
 Builds the flagship env (config_mini_cheetah: 4000 envs, trimesh terrain)
 on the card with the runs/r5_flagship policy, runs one warm-up training
 iteration and one timed without the profiler (its rollout/update split),
-then profiles the two halves of a third under torch.profiler: the 24-step
-rollout with GAE, and the PPO update (5 epochs x 4 minibatches). For each
+then profiles the two halves of a third (learn/ppo.py's
+make_train_functions) under torch.profiler: the 24-step rollout with GAE,
+and the PPO update (5 epochs x 4 minibatches). For each
 half it prints the wall time, the device time summed over all CUDA kernels
 (profiler annotations such as the optimizer's step range left out) and its
 share of the wall time (the device busy share; its complement is the idle
@@ -18,6 +19,10 @@ the terrain lookup (the positions-only FK and the gathers that give K1 its
 terrain rows) and by the whole call, and their times by CUDA events
 (median of 5, taken in turns), beside K1's own. A last line holds the
 numbers as JSON, beside the card's name and power limit.
+
+``--device cpu`` runs the same path on the CPU with the plain physics (a
+rehearsal): its device times, kernel counts and K1's time print as "not
+measured", and the host clock times the calls.
 """
 
 from __future__ import annotations
@@ -36,11 +41,16 @@ WEIGHTS = os.path.join(ROOT, "runs", "r5_flagship", "checkpoints",
 HORIZON = 24
 
 
-def profiled(fn):
+def profiled(fn, on_card=True):
     """Run fn under torch.profiler; returns (fn's result, wall s, device ms,
-    kernel launches, top kernels)."""
+    kernel launches, top kernels). Off the card: fn's result and wall s,
+    None for the device's numbers."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    if not on_card:
+        t = time.time()
+        out = fn()
+        return out, time.time() - t, None, None, []
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
                  ) as prof:
         t = time.time()
@@ -61,9 +71,14 @@ def profiled(fn):
         [name, n, d / 1e3] for name, (n, d) in top]
 
 
-def time_ms(fn, reps=20):
+def time_ms(fn, on_card=True, reps=20):
     import torch
     fn()
+    if not on_card:   # the CPU rehearsal: the host clock
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t) / reps * 1e3
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -75,7 +90,9 @@ def time_ms(fn, reps=20):
     return start.elapsed_time(end) / reps
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
     from rapid_locomotion_rl_tpu_torch.config import config_mini_cheetah
@@ -87,13 +104,23 @@ def main() -> int:
     from rapid_locomotion_rl_tpu_torch.sampler import Sampler
     from rapid_locomotion_rl_tpu_torch.utils.checkpoint import load_pytree
 
-    if not torch.cuda.is_available():
-        raise SystemExit("needs a CUDA card")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip()
-    dev = torch.device("cuda", 0)
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--num-envs", type=int, default=None,
+                    help="envs (default: the flagship's 4000)")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (K1 on the card) or cpu (its plain version)")
+    opts = ap.parse_args(argv)
+    dev = torch.device(opts.device)
+    on_card = dev.type == "cuda"
+    if on_card and not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA card (or --device cpu)")
+    card = (subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                            "--format=csv,noheader"], capture_output=True,
+                           text=True, check=True).stdout.strip()
+            if on_card else "CPU (not a card's figure)")
     cfg = config_mini_cheetah()
+    if opts.num_envs is not None:
+        cfg.env.num_envs = opts.num_envs
     n_envs = cfg.env.num_envs
     env = LeggedRobotEnv(cfg, device=dev)
     with open(os.path.join(os.path.dirname(os.path.dirname(WEIGHTS)),
@@ -115,19 +142,11 @@ def main() -> int:
                                             timings=timings)
     step_ms = timings["rollout_s"] / HORIZON * 1e3
 
-    def rollout_gae():
-        s, traj, info = P.rollout(env, ac, args, state, sampler, HORIZON)
-        with torch.no_grad():
-            last = ac.evaluate(s.obs, s.privileged_obs)
-        adv, ret = P.compute_gae(traj, last, args.gamma, args.lam)
-        return s, traj, adv, ret
-
-    (state, traj, adv, ret), r_wall, r_dev, r_n, r_top = profiled(
-        rollout_gae)
-    nbins = env.curriculum_grid.num_bins
-    _, u_wall, u_dev, u_n, u_top = profiled(lambda: P.ppo_update(
-        ac, args, ppo_state, traj, adv, ret, sampler, env.num_train_envs,
-        num_curriculum_bins=nbins))
+    rollout_gae, update = P.make_train_functions(env, ac, args, HORIZON)
+    (state, traj, adv, ret, _), r_wall, r_dev, r_n, r_top = profiled(
+        lambda: rollout_gae(state, sampler), on_card)
+    _, u_wall, u_dev, u_n, u_top = profiled(
+        lambda: update(ppo_state, traj, adv, ret, sampler), on_card)
 
     # the parts of one physics call on the final state
     grid = env.collision_grid
@@ -138,8 +157,9 @@ def main() -> int:
     x = CP.pack_inputs(env.model, sim, state.torques, params, imp, grid, gt)
     y = torch.empty((CP.out_channels(env.model), n_envs), device=dev)
     cst = CP.KERNEL.table(env.model, cfg.sim, layout, dev)
-    k1_ms = time_ms(
-        lambda: CP.KERNEL.launch_packed(x, y, cst, layout, True, True), 50)
+    k1_ms = (time_ms(lambda: CP.KERNEL.launch_packed(x, y, cst, layout,
+                                                     True, True), reps=50)
+             if on_card else None)
 
     def lookup():
         return CP.geom_terrain_at(env.model, cfg.sim, layout, sim, grid, win)
@@ -150,40 +170,48 @@ def main() -> int:
             implicit_damp=imp, terrain_window=win)
 
     lookup(), call()
-    lookup_n = profiled(lookup)[3]
-    call_n = profiled(call)[3]
+    lookup_n = profiled(lookup, on_card)[3]
+    call_n = profiled(call, on_card)[3]
     lk, cl = [], []
     for _ in range(5):
-        lk.append(time_ms(lookup))
-        cl.append(time_ms(call))
+        lk.append(time_ms(lookup, on_card))
+        cl.append(time_ms(call, on_card))
     lookup_ms, call_ms = sorted(lk)[2], sorted(cl)[2]
+
+    def nm(v, spec):
+        return "not measured" if v is None else format(v, spec)
 
     print(f"card: {card}")
     for label, wall, dev_ms, n, top in (
             ("rollout+GAE", r_wall, r_dev, r_n, r_top),
             ("update", u_wall, u_dev, u_n, u_top)):
         print(f"{label}: {wall:.4f} s wall (with the profiler's cost), "
-              f"device {dev_ms:.3f} ms over {n} kernels, busy share "
-              f"{dev_ms / 1e3 / wall * 100:.1f}%")
+              f"device {nm(dev_ms, '.3f')} ms over {nm(n, 'd')} kernels, "
+              f"busy share "
+              f"{nm(dev_ms and dev_ms / 1e3 / wall * 100, '.1f')}%")
         for name, k, d in top:
             print(f"  {d:9.3f} ms {k:6d}x  {name[:90]}")
     d = cfg.control.decimation
     print(f"iteration without the profiler: rollout "
           f"{timings['rollout_s']:.3f} s ({step_ms:.1f} ms per env step), "
           f"update {timings['update_s']:.3f} s")
-    print(f"rollout: {r_n / HORIZON:.0f} kernels per env step")
-    print(f"physics call on the final state: {call_n} kernels, "
-          f"{call_ms:.3f} ms; terrain lookup {lookup_n} kernels, "
-          f"{lookup_ms:.3f} ms; K1 1 kernel, {k1_ms:.4f} ms. x{d} per env "
-          f"step: calls {call_ms * d / step_ms * 100:.1f}%, lookups "
+    print(f"rollout: {nm(r_n and r_n / HORIZON, '.0f')} kernels per env "
+          f"step")
+    print(f"physics call on the final state: {nm(call_n, 'd')} kernels, "
+          f"{call_ms:.3f} ms; terrain lookup {nm(lookup_n, 'd')} kernels, "
+          f"{lookup_ms:.3f} ms; K1 1 kernel, {nm(k1_ms, '.4f')} ms. x{d} per "
+          f"env step: calls {call_ms * d / step_ms * 100:.1f}%, lookups "
           f"{lookup_ms * d / step_ms * 100:.1f}%, K1 "
-          f"{k1_ms * d / step_ms * 100:.2f}% of the env step")
+          f"{nm(k1_ms and k1_ms * d / step_ms * 100, '.2f')}% of the env "
+          f"step")
     print(json.dumps({
         "card": card, "envs": n_envs, "steps": HORIZON,
         "rollout": {"wall_s": r_wall, "device_ms": r_dev, "kernels": r_n,
-                    "busy_share": r_dev / 1e3 / r_wall, "top": r_top},
+                    "busy_share": r_dev and r_dev / 1e3 / r_wall,
+                    "top": r_top},
         "update": {"wall_s": u_wall, "device_ms": u_dev, "kernels": u_n,
-                   "busy_share": u_dev / 1e3 / u_wall, "top": u_top},
+                   "busy_share": u_dev and u_dev / 1e3 / u_wall,
+                   "top": u_top},
         "iteration": timings, "env_step_ms": step_ms,
         "physics_call": {"kernels": call_n, "ms": call_ms},
         "terrain_lookup": {"kernels": lookup_n, "ms": lookup_ms},

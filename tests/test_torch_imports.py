@@ -1,5 +1,6 @@
-"""The port imports torch and numpy, never JAX or the JAX package; and
-chip_smoke.py refuses to run without a CUDA card or outside the repo."""
+"""The port (with bench_cuda.py) imports torch and numpy, never JAX or the
+JAX package; and chip_smoke.py refuses to run without a CUDA card or
+outside the repo."""
 
 import os
 import re
@@ -11,6 +12,7 @@ from rapid_locomotion_rl_tpu import RLTPU_ROOT_DIR
 
 PORT = os.path.join(RLTPU_ROOT_DIR, "rapid_locomotion_rl_tpu_torch")
 SMOKE = os.path.join(RLTPU_ROOT_DIR, "chip_smoke.py")
+BENCH = os.path.join(RLTPU_ROOT_DIR, "bench_cuda.py")
 # the ranks of the data-parallel tests run it alone, with the port only
 WORKER = os.path.join(RLTPU_ROOT_DIR, "tests", "torch_dist_worker.py")
 
@@ -23,6 +25,7 @@ PROBE = r"""
 import importlib.util
 import os
 import sys
+import bench_cuda
 import chip_smoke
 import rapid_locomotion_rl_tpu_torch
 from rapid_locomotion_rl_tpu_torch import config, convert, sampler
@@ -81,7 +84,7 @@ def test_port_imports_no_jax():
 def test_no_jax_import_lines():
     pat = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|"
                      r"rapid_locomotion_rl_tpu)(\.|\s|$)")
-    files = [SMOKE, WORKER] + SCRIPTS + [os.path.join(d, f)
+    files = [SMOKE, BENCH, WORKER] + SCRIPTS + [os.path.join(d, f)
                                  for d, _, fs in os.walk(PORT)
                                  for f in fs if f.endswith(".py")]
     hits = [f"{p}:{i}: {line.rstrip()}" for p in files

@@ -302,12 +302,12 @@ def _run_args(mod):
     return mod.ACArgs(**p["AC_Args"]), p["PPO_Args"]
 
 
-@pytest.fixture(scope="module")
-def resumed_updates():
-    """One update from r5_flagship's PPO state in each package (the JAX one
-    jitted on the CPU) on a [T, N] trajectory made by the policy itself,
-    with the adaptation step, the per-bin residuals over the flagship's
-    5202 curriculum bins, and the same minibatch permutation."""
+def resumed_batch():
+    """r5_flagship's JAX PPO state and a [T, N] trajectory made by its
+    policy, with env bins among the curriculum bins that the flagship's
+    envs hold: (JAX state, its ActorCritic and PPOArgs, the trajectory as
+    numpy and as JAX arrays, advantages, returns, the update's key and the
+    minibatch permutation it draws, the bin count, the held bins)."""
     payload = jload(STATE)
     jstate = payload["ppo_state"]
     nbins = int(np.asarray(payload["env_state"].curriculum.weights).shape[0])
@@ -336,25 +336,46 @@ def resumed_updates():
     last = jnp.asarray(rng.normal(0, 1, NR), jnp.float32)
     adv, ret = JP.compute_gae(jtraj, last, jargs.gamma, jargs.lam)
     key = jax.random.PRNGKey(5)
+    perm = torch.tensor(np.asarray(jax.random.permutation(
+        key, (T * NTRAIN // 4) * 4)))
+    return (jstate, jac, jargs, traj, jtraj, adv, ret, key, perm, nbins,
+            held)
+
+
+@pytest.fixture(scope="module")
+def resumed_updates():
+    """One update from r5_flagship's PPO state in each package (the JAX one
+    jitted on the CPU) on a [T, N] trajectory made by the policy itself,
+    with the adaptation step, the per-bin residuals over the flagship's
+    5202 curriculum bins, and the same minibatch permutation."""
+    (jstate, jac, jargs, traj, jtraj, adv, ret, key, perm, nbins,
+     held) = resumed_batch()
     j1, jm = jax.jit(lambda s, k: JP.ppo_update(
         jac, jargs, s, jtraj, adv, ret, k, NTRAIN,
         num_curriculum_bins=nbins, entropy_coef=0.01))(
         jax.tree.map(jnp.asarray, jstate), key)
-    perm = torch.tensor(np.asarray(jax.random.permutation(
-        key, (T * NTRAIN // 4) * 4)))
 
-    tac = TN.ActorCritic(*DIMS, _run_args(TN)[0])
-    targs = TP.PPOArgs(**ppo)
-    ts = convert.ppo_state_from_jax(load_pytree(STATE)["ppo_state"], tac,
-                                    targs)
+    tac, targs, ts = port_state()
     lr0 = ts.lr
     ts, tm = TP.ppo_update(
-        tac, targs, ts, TP.Transition(*(torch.tensor(np.asarray(x))
-                                        for x in traj)),
-        torch.tensor(np.asarray(adv)), torch.tensor(np.asarray(ret)),
-        PermSampler(perm), NTRAIN, num_curriculum_bins=nbins,
-        entropy_coef=0.01)
+        tac, targs, ts, *torch_batch(traj, adv, ret), PermSampler(perm),
+        NTRAIN, num_curriculum_bins=nbins, entropy_coef=0.01)
     return (jstate, j1, jm), (lr0, ts, tm, tac), held
+
+
+def port_state():
+    """The port's ActorCritic, PPOArgs and PPO state of r5_flagship."""
+    ac_args, ppo = _run_args(TN)
+    tac = TN.ActorCritic(*DIMS, ac_args)
+    targs = TP.PPOArgs(**ppo)
+    return tac, targs, convert.ppo_state_from_jax(
+        load_pytree(STATE)["ppo_state"], tac, targs)
+
+
+def torch_batch(traj, adv, ret):
+    """resumed_batch's trajectory, advantages and returns as tensors."""
+    return (TP.Transition(*(torch.tensor(np.asarray(x)) for x in traj)),
+            torch.tensor(np.asarray(adv)), torch.tensor(np.asarray(ret)))
 
 
 def _adam(opt_state):
@@ -392,7 +413,14 @@ def test_resumed_flagship_state_loads_like_jax(resumed_updates):
 
 
 def test_resumed_flagship_update_matches_jax(resumed_updates):
-    (_, j1, jm), (lr0, ts, tm, tac), held = resumed_updates
+    check_update_matches_jax(resumed_updates)
+
+
+def check_update_matches_jax(resumed):
+    """The port's update (``resumed_updates``' second part) against JAX's
+    (its first): losses, KL, the per-bin residuals, the LR and the
+    parameters, at the tolerances of this file's docstring."""
+    (_, j1, jm), (lr0, ts, tm, tac), held = resumed
     assert set(tm) == set(jm)
     for k in ("mean_value_loss", "mean_surrogate_loss",
               "mean_adaptation_loss", "kl", "mean_noise_std"):
