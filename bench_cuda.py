@@ -11,8 +11,9 @@ Prints ONE JSON line on stdout:
    "vs_baseline": N / 50000}
 Everything else goes to stderr: the card's name and power limit, and for
 each size its rollout/update split, the timed iterations' ms (min, median,
-max), peak device memory, K1 launches per iteration and whether the K1
-library was built in this run or loaded from build/torch_kernels/<hash>/;
+max), peak device memory, K1 launches per iteration and the terrain
+lookup kernel's beside them, and whether the K1 library was built in this
+run or loaded from build/torch_kernels/<hash>/;
 then the comparison arm on the general (AoS) step, which runs no K1.
 
 Environment, as bench.py reads it: BENCH_SIZES (env counts, default
@@ -110,6 +111,7 @@ def _bench_size(num_envs, steps_per_env, n_iter=20, log=lambda s: None,
         iter_s.append(time.time() - t0)
     dt_total = sum(iter_s) / n_iter
     launched = dict(CP.KERNEL.variant_launches)
+    lookups_per_iter = CP.KERNEL.geom_terrain_launches / n_iter
 
     # phase split, timed separately: 5 rollouts from one env state (the
     # env step changes no tensor in place), then 5 updates of one
@@ -150,6 +152,7 @@ def _bench_size(num_envs, steps_per_env, n_iter=20, log=lambda s: None,
             origin.append(f"{CP.variant_name(v)} {where}")
         k1 = ("K1 launches per iteration: " + ", ".join(
             f"{name} {n:g}" for name, n in k1_per_iter.items())
+            + f", terrain lookup (geom_terrain) {lookups_per_iter:g}"
             + "; library " + ", ".join(origin))
     log(f"[bench] {num_envs} envs: warm-up {dt_warm:.1f}s; {n_iter} timed "
         f"iterations ms min {ms[0]:.1f} / median {statistics.median(ms):.1f}"
@@ -161,7 +164,8 @@ def _bench_size(num_envs, steps_per_env, n_iter=20, log=lambda s: None,
         stats.update(env=env, env_state=env_state, iter_ms=ms,
                      rollout_ms=dt_roll * 1e3, update_ms=dt_upd * 1e3,
                      warmup_s=dt_warm, peak_bytes=peak,
-                     k1_per_iter=k1_per_iter)
+                     k1_per_iter=k1_per_iter,
+                     lookups_per_iter=lookups_per_iter)
     return steps / dt_total
 
 

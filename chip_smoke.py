@@ -10,15 +10,15 @@ run one rank of the ``sharded`` phase; the smoke run takes no argument.)
 
 1. device:   a CUDA card, its name and power limit (nvidia-smi).
 2. build:    nvcc builds the physics kernel from csrc/, one library per
-             variant, all 24 at once (as many nvcc as the machine has
-             cores): both limb layouts of the repo (the quadruped's 3 x 4,
+             variant, and the terrain lookup kernel's library, all 25 at
+             once (as many nvcc as the machine has cores): both limb layouts of the repo (the quadruped's 3 x 4,
              the test hopper's 1 x 2) on the plane or terrain, with or
              without world boxes, with the apparent or the legacy contact
              model, and with the legacy model also a fixed base; each
              build's seconds, ptxas's register, spill and stack lines; per
              variant, the CUDA runtime's shared bytes per env and per
              block, resident warps per SM, registers and local bytes per
-             thread.
+             thread; the lookup's nvcc seconds and ptxas lines.
 3. kernel:   the plane variant against its plain PyTorch version on Go1 at
              4096 envs, on states made from a numpy seed: torque-free
              flight at rtol/atol 2e-5 on state and 1e-5 on geom positions;
@@ -30,7 +30,22 @@ run one rank of the ``sharded`` phase; the smoke run takes no argument.)
 4. terrain:  the terrain variant, the same way, on Mini Cheetah at 4000
              envs spread over the default TerrainCfg mix (slopes, stairs,
              obstacles; the flagship's own grid is flat), looked up through
-             the env's column-block window.
+             the env's column-block window. The kernel side is the card's
+             whole physics call: the terrain lookup kernel, then K1.
+4b. geom-terrain: the terrain lookup kernel (csrc/geom_terrain.cu, the
+             per-geom FK and windowed bilinear lookup that fill K1's
+             terrain rows) against its plain version
+             (ops/soa_physics.py::sample_geom_terrain) at 4000 Mini
+             Cheetah envs, on the mix's grid and on the flagship's own
+             (flat) grid, through each window the env takes (none: the
+             whole grid; the square of terrain_patch_size + 8 cells; the
+             32 x 128 column block): heights max |err| <= 2e-5, normals >=
+             99.9% of entries within 2e-5 (the rest counted and printed);
+             two launches bitwise equal; the kernel's geom (x, y) against
+             K1's substep-0 geom positions on the same input (1e-5); ms a
+             launch, the plain version's ms and the bound. Then the card's
+             physics call on the flagship grid held to the plain step by
+             phase 4's rules.
 5. world:    the terrain + world variant, the same way, at the HLP's own
              width (1024 Mini Cheetah envs), in the HLP's corridor around
              each env's origin over the same mix, spheres clear of,
@@ -215,8 +230,11 @@ run one rank of the ``sharded`` phase; the smoke run takes no argument.)
              state as in phases 12-15; the bench's preflight once (a 4x4
              product in a spawned process, the card line).
 28. result:  the kernels line (every variant built for the card, with its
-             launches on these paths; the run fails if one has none), the
-             card line, and the contract line.
+             launches on these paths, and the terrain lookup kernel with
+             its launches summed over every phase whose path ran it; the
+             run fails if one has none), the card line, and the contract
+             line. Every phase's count check also holds the lookup to one
+             launch per terrain-variant launch of its path.
 """
 
 from __future__ import annotations
@@ -290,10 +308,16 @@ def phase_build():
     built = CP.KERNEL.build_all()
     wall = time.time() - t
     secs = {v: built[VARIANT_OF[v]][2] for v in VARIANTS}
-    say("build", f"{len(built)} variants in {wall:.2f}s of wall time "
-        f"({sum(secs.values()):.1f}s of nvcc in all, up to "
-        f"{os.cpu_count()} at once) -> "
+    gt_path, gt_log, gt_s = CP.KERNEL.geom_terrain_build
+    say("build", f"{len(built)} variants and the terrain lookup in "
+        f"{wall:.2f}s of wall time ({sum(secs.values()) + gt_s:.1f}s of "
+        f"nvcc in all, up to {os.cpu_count()} at once) -> "
         f"{os.path.dirname(built[VARIANT_OF['plane']][0])}")
+    say("build", f"geom_terrain ({os.path.basename(gt_path)}): nvcc "
+        f"{gt_s:.1f}s | ptxas: " + " / ".join(
+            x.strip() for x in gt_log.splitlines()
+            if any(k in x for k in ("registers", "spill", "stack"))))
+    secs["geom_terrain"] = gt_s
     go1_cfg, go1 = go1_model()
     mc_cfg, mc = robot(config_mini_cheetah)
     hop_cfg, hop = hopper_model()
@@ -452,6 +476,32 @@ def random_inputs(model, n, seed, airborne, dev):
 
 
 _OPS = {}
+# aten ops that move or view data, or make a tensor, and compute nothing
+NO_OPS = ("view", "select", "slice", "stack", "cat", "unbind", "detach",
+          "alias", "_to_copy", "copy", "lift", "scalar_tensor", "expand",
+          "unsqueeze", "squeeze", "t.", "transpose", "permute", "clone",
+          "empty", "zeros", "full", "split")
+
+
+def count_ops(fn, skip=NO_OPS):
+    """Elements that ``fn``'s aten ops compute, on the CPU: every op whose
+    name holds none of ``skip`` adds its output's element count."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        ops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if isinstance(out, torch.Tensor) and not any(
+                    k in str(func) for k in skip):
+                Count.ops += out.numel()
+            return out
+
+    with Count():
+        fn()
+    return Count.ops
 
 
 def count_ops_per_env(model, sim_cfg, n=8, terrain=False, world=False,
@@ -465,26 +515,9 @@ def count_ops_per_env(model, sim_cfg, n=8, terrain=False, world=False,
     every elementwise aten op adds its output's element count (sin, sqrt,
     a comparison or a clamp count as one)."""
     import torch
-    from torch.utils._python_dispatch import TorchDispatchMode
     from rapid_locomotion_rl_tpu_torch.envs.world import default_corridor
     from rapid_locomotion_rl_tpu_torch.ops.soa_physics import (
         _v3, check_supported, substep_chain)
-    skip = ("view", "select", "slice", "stack", "cat", "unbind", "detach",
-            "alias", "_to_copy", "copy", "lift", "scalar_tensor", "expand",
-            "unsqueeze", "squeeze", "t.", "transpose", "permute", "clone",
-            "empty", "zeros", "full", "split")
-
-    class Count(TorchDispatchMode):
-        ops = 0
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            out = func(*args, **(kwargs or {}))
-            name = str(func)
-            if isinstance(out, torch.Tensor) and not any(
-                    s in name for s in skip):
-                Count.ops += out.numel()
-            return out
-
     state, tau, params, imp = random_inputs(model, n, 1, False, "cpu")
     key = (model.name, model.ng, sim_cfg.contact_model, terrain, world,
            fixed_base)
@@ -510,10 +543,8 @@ def count_ops_per_env(model, sim_cfg, n=8, terrain=False, world=False,
         boxes = default_corridor()
         comps["origin"] = _v3(state.base_pos * 0.5)
     layout = check_supported(model, sim_cfg)
-    with Count():
-        substep_chain(model, sim_cfg, layout, comps, boxes,
-                      fixed_base=fixed_base)
-    _OPS[key] = Count.ops / n
+    _OPS[key] = count_ops(lambda: substep_chain(
+        model, sim_cfg, layout, comps, boxes, fixed_base=fixed_base)) / n
     return _OPS[key]
 
 
@@ -778,6 +809,179 @@ def phase_terrain(dev, tc, grid, phase="terrain", legacy=False,
         fixed_base=fixed_base, plain_reps=plain_reps)
 
 
+def flagship_grid(dev):
+    """The collision grid of config_mini_cheetah's own terrain on the card,
+    as its env builds it (flat: its proportions pick noise of magnitude
+    0), and that config."""
+    from rapid_locomotion_rl_tpu_torch.config import config_mini_cheetah
+    from rapid_locomotion_rl_tpu_torch.envs.terrain import Terrain
+    cfg = config_mini_cheetah()
+    tc = cfg.terrain
+    terrain = Terrain(tc, cfg.env.num_envs, seed=cfg.seed)
+    return cfg, terrain.as_collision_grid(
+        tc.static_friction, tc.dynamic_friction, tc.restitution,
+        upsample=tc.collision_upsample, slope_threshold=tc.slope_treshold,
+        device=dev)
+
+
+def count_lookup_ops_per_env(model, sim, layout, state, grid, window):
+    """Arithmetic operations per env of the terrain lookup, counted from
+    its plain version on the CPU on the first 8 envs of ``state`` (as
+    count_ops_per_env counts K1's): each geom's FK once, then its lookup."""
+    from rapid_locomotion_rl_tpu_torch.ops import cuda_physics as CP
+    from rapid_locomotion_rl_tpu_torch.ops.contact import Window
+    n = 8
+    st = type(state)(*(t[:n].cpu() for t in state))
+    win = (None if window is None else
+           Window(window.ix0[:n].cpu(), window.iy0[:n].cpu(), window.rows,
+                  window.cols))
+    g = grid._replace(height=grid.height.cpu())
+    # the corners' gathers (index) and reshapes move data
+    return count_ops(lambda: CP.geom_terrain_at(model, sim, layout, st, g,
+                                                win),
+                     NO_OPS + ("index", "reshape")) / n
+
+
+def bases_over(gc, n, seed, dev):
+    """[n, 2] float32 base (x, y) spread over the env cells of terrain
+    config ``gc``, 0.5 m in from its edges."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    return torch.tensor(np.stack([
+        rng.uniform(0.5, gc.num_rows * gc.terrain_length - 0.5, n),
+        rng.uniform(0.5, gc.num_cols * gc.terrain_width - 0.5, n)], -1),
+        dtype=torch.float32, device=dev)
+
+
+def phase_geom_terrain(dev, tc, grid):
+    """The terrain lookup kernel against its plain version at 4000 Mini
+    Cheetah envs on the mix's grid and the flagship's, through each window
+    the env takes; its (x, y) against K1's geom positions; times and the
+    bound; then the card's physics call on the flagship grid held to the
+    plain step. Returns the kernels line's numbers (the flagship grid
+    through its column-block window, the main path's case)."""
+    import copy
+    import torch
+    from rapid_locomotion_rl_tpu_torch.config import config_mini_cheetah
+    from rapid_locomotion_rl_tpu_torch.ops import cuda_physics as CP
+    from rapid_locomotion_rl_tpu_torch.ops.contact import (
+        blocked_window, square_window, terrain_height_bilinear)
+    t0 = time.time()
+    cfg, model = robot(config_mini_cheetah)
+    fcfg, fgrid = flagship_grid(dev)
+    say("geom-terrain", f"flagship collision grid "
+        f"{tuple(fgrid.height.shape)} ({fgrid.height.numel() * 4 / 2**20:.1f}"
+        f" MiB), heights [{fgrid.height.min().item():.3f}, "
+        f"{fgrid.height.max().item():.3f}] m")
+    layout = CP.check_supported(model, cfg.sim)
+    P = int(cfg.sim.terrain_patch_size)
+    n, ng, nv = N_MC, model.ng, model.nv
+    ct = CP.terrain_row(model, True)
+    off_gpos = 13 + 2 * nv + 3 * model.nr
+    out, err_all = {}, 0.0
+    for gname, g, gc in (("mix", grid, tc), ("flagship", fgrid,
+                                             fcfg.terrain)):
+        xy0 = bases_over(gc, n, SEED + 2, dev)
+        under = terrain_height_bilinear(g, xy0[:, 0], xy0[:, 1])
+        state, tau, params, imp = random_inputs(model, n, 0, False, dev)
+        state = state._replace(base_pos=torch.cat(
+            [xy0, state.base_pos[:, 2:] + under[:, None]], -1))
+        bx, by = state.base_pos[:, 0], state.base_pos[:, 1]
+        for wname in ("none", "square", "blocked"):
+            sim = copy.deepcopy(cfg.sim)
+            win = None
+            if wname == "none":
+                sim.terrain_patch_size = 0
+            elif wname == "square":
+                win = square_window(g, bx, by, P + 8)
+            else:
+                win = blocked_window(g, bx, by)
+            cst = CP.KERNEL.table(model, sim, layout, dev)
+            x = CP.pack_inputs(model, state, tau, params, imp, g)
+            xy = torch.empty((2 * ng, n), device=dev)
+
+            def launch(xx, xy_out=None):
+                CP.KERNEL.launch_geom_terrain(xx, cst, layout, ng, ct, g,
+                                              win, xy_out)
+            launch(x, xy)
+            torch.cuda.synchronize()
+            hh = x[ct:ct + ng].T
+            nn = x[ct + ng:ct + 4 * ng].T.reshape(n, ng, 3)
+            ref_h, ref_n = CP.geom_terrain_at(model, sim, layout, state, g,
+                                              win)
+            if not (torch.isfinite(hh).all() and torch.isfinite(nn).all()):
+                raise AssertionError(f"{gname}/{wname}: non-finite lookup")
+            h_err = (hh - ref_h).abs().max().item()
+            n_diff = (nn - ref_n).abs()
+            off = int((n_diff > 2e-5).sum())
+            if not h_err <= 2e-5:
+                raise AssertionError(f"{gname}/{wname}: heights max |err| "
+                                     f"{h_err:.3g} > 2e-5")
+            if not off <= 1e-3 * n_diff.numel():
+                raise AssertionError(f"{gname}/{wname}: {off} of "
+                                     f"{n_diff.numel()} normal entries "
+                                     f"past 2e-5")
+            # two launches on one input: the same bits
+            x2 = x.clone()
+            x2[ct:ct + 4 * ng] = float("nan")
+            launch(x2)
+            torch.cuda.synchronize()
+            if not torch.equal(x, x2):
+                raise AssertionError(f"{gname}/{wname}: two launches differ")
+            # the (x, y) that it looked up at, against K1's geom positions
+            # (taken at substep 0, from the same input)
+            y = torch.empty((CP.out_channels(model), n), device=dev)
+            CP.KERNEL.launch_packed(x, y, cst, layout, True, True)
+            torch.cuda.synchronize()
+            k1_xy = torch.stack([y[off_gpos + 3 * gg + a]
+                                 for gg in range(ng) for a in (0, 1)])
+            torch.testing.assert_close(xy, k1_xy, rtol=1e-5, atol=1e-5)
+            xy_bitwise = torch.equal(xy, k1_xy)
+            ms = time_ms(lambda: launch(x), 200)
+            plain_ms = time_ms(lambda: CP.geom_terrain_at(
+                model, sim, layout, state, g, win), 5)
+            ops = count_lookup_ops_per_env(model, sim, layout, state, g, win)
+            nbytes = 4 * n * (7 + nv) + 16 * n * ng + 16 * n * ng \
+                + 4 * cst.numel() + (16 * n if win is not None else 0)
+            t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+            t_ops = ops * n / H100_FP32_OPS_PER_S * 1e3
+            err = max(h_err, n_diff.max().item())
+            err_all = max(err_all, err)
+            out[(gname, wname)] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                max_abs_err=err)
+            say("geom-terrain", f"{gname} grid, window {wname}"
+                + ("" if win is None else f" ({win.rows} x {win.cols})")
+                + f": heights max |err| {h_err:.3g}; normals max |err| "
+                f"{n_diff.max().item():.3g}, {off} of {n_diff.numel()} "
+                f"past 2e-5; two launches bitwise equal; (x, y) vs K1's "
+                f"geom positions "
+                + ("bitwise equal" if xy_bitwise else
+                   f"max |err| {(xy - k1_xy).abs().max().item():.3g}")
+                + f"; {ms:.4f} ms/launch, plain {plain_ms:.2f} ms, bound "
+                f"{max(t_bytes, t_ops):.5f} ms by "
+                f"{out[(gname, wname)]['bound_by']} ({nbytes} bytes, "
+                f"{ops:.0f} ops/env)")
+    # the card's physics call (the lookup, then K1) on the flagship grid
+    xy0 = bases_over(fcfg.terrain, n, SEED + 3, dev)
+
+    def make_inputs(seed, airborne):
+        state, tau, params, imp = random_inputs(model, n, seed, airborne,
+                                                dev)
+        return state._replace(base_pos=torch.cat(
+            [xy0, state.base_pos[:, 2:]], -1)), tau, params, imp
+    hold_kernel("geom-terrain", model, cfg.sim, make_inputs, n,
+                terrain=fgrid,
+                window=lambda s: blocked_window(fgrid, s.base_pos[:, 0],
+                                                s.base_pos[:, 1]),
+                sloped=False, plain_reps=1)
+    k = dict(out[("flagship", "blocked")], max_abs_err=err_all, cases=out)
+    say("geom-terrain", f"phase {time.time() - t0:.1f}s | {card_line()}")
+    return k
+
+
 def hold_in_walls(phase, out_k, out_p, wall):
     """The in-wall flight by the CPU tests' rule for states in the walls
     (tests/torch_port_helpers.py::assert_step_close_walls): the envs with
@@ -998,21 +1202,34 @@ def zero_counts():
     CP.KERNEL.zero_counts()
 
 
+# the terrain lookup kernel's launches on each phase's path, by the name
+# that phase gives check_counts; the kernels line sums them
+LOOKUPS = {}
+
+
 def read_counts():
-    """Launches per variant since zero_counts, in the order of VARIANTS."""
+    """Launches per variant since zero_counts, in the order of VARIANTS,
+    then the terrain lookup kernel's."""
     from rapid_locomotion_rl_tpu_torch.ops import cuda_physics as CP
     got = CP.KERNEL.variant_launches
-    return tuple(got.get(VARIANT_OF[v], 0) for v in VARIANTS)
+    return (tuple(got.get(VARIANT_OF[v], 0) for v in VARIANTS)
+            + (CP.KERNEL.geom_terrain_launches,))
 
 
 def check_counts(phase, got, **want):
     """``got`` (read_counts or a difference of two) has ``want`` launches
-    of the named variants and none of the others."""
+    of the named variants and none of the others, and one launch of the
+    terrain lookup for each launch of a terrain variant (a physics call on
+    terrain runs the lookup, then K1); the lookup's count goes into
+    LOOKUPS[phase]."""
     exp = tuple(want.get(v, 0) for v in VARIANTS)
+    exp += (sum(n for v, n in want.items() if VARIANT_OF[v][2]),)
     if tuple(got) != exp:
-        raise AssertionError(f"{phase}: launches per variant "
-                             f"{dict(zip(VARIANTS, got))}, want "
-                             f"{dict(zip(VARIANTS, exp))}")
+        names = VARIANTS + ("geom_terrain",)
+        raise AssertionError(f"{phase}: launches per kernel "
+                             f"{dict(zip(names, got))}, want "
+                             f"{dict(zip(names, exp))}")
+    LOOKUPS[phase] = got[-1]
 
 
 def phase_rollout(dev):
@@ -1577,7 +1794,7 @@ def phase_train(dev):
     per_iter = runner.args.num_steps_per_env * cfg.control.decimation
     if len(seen) != ITERATIONS:
         raise AssertionError(f"{len(seen)} iterations logged")
-    before = (0,) * len(VARIANTS)
+    before = (0,) * (len(VARIANTS) + 1)     # with the lookup's count
     runs = []
     for (it, counts, m, z), tm in zip(seen, runner.timings):
         check_counts(f"train iteration {it}",
@@ -2362,7 +2579,8 @@ def phase_aos(dev, tc, grid):
             + " a call")
     # K1 ran only to be compared with
     result["peak_bytes"] = phase_end(
-        "aos", t0, f"{sum(read_counts())} (the comparisons)")
+        "aos", t0, f"{sum(read_counts()[:len(VARIANTS)])} (the "
+        f"comparisons)")
     return result
 
 
@@ -2811,10 +3029,12 @@ def phase_bench(dev):
     # and the 5 rollouts of its split are counted here (96 launches each)
     per_iter = HORIZON * stats["env"].cfg.control.decimation
     check_counts("bench", counts, terrain=(BENCH_ITERS + 5) * per_iter)
-    if stats["k1_per_iter"] != {"physics_step_terrain": per_iter}:
+    if (stats["k1_per_iter"] != {"physics_step_terrain": per_iter}
+            or stats["lookups_per_iter"] != per_iter):
         raise AssertionError(f"bench: K1 launches per timed iteration "
-                             f"{stats['k1_per_iter']}, want {per_iter} "
-                             f"terrain")
+                             f"{stats['k1_per_iter']} and lookups "
+                             f"{stats['lookups_per_iter']}, want {per_iter} "
+                             f"of each on terrain")
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         bench_cuda._emit(v)
@@ -2854,6 +3074,7 @@ def main(argv=None) -> int:
     k1 = phase_kernel(dev)
     tc, grid = mix_grid("terrain", dev)
     kt = phase_terrain(dev, tc, grid)
+    gk = phase_geom_terrain(dev, tc, grid)
     kw = phase_world(dev, tc, grid, N_HLP, "world")
     phase_world(dev, tc, grid, N_MC, "world-4000")
     kl = phase_variant(dev, tc, grid, "legacy", fixed_base=False)
@@ -2945,9 +3166,28 @@ def main(argv=None) -> int:
         "bound_by": held[v]["bound_by"],
         "library_ms": None,
     } for v in VARIANTS]
+    kernels.append({
+        "name": "geom_terrain",
+        "route": "cuda",
+        "source": "rapid_locomotion_rl_tpu_torch/csrc/geom_terrain.cu",
+        "replaces": "rapid_locomotion_rl_tpu/ops/soa_physics.py:606",
+        "launches": sum(LOOKUPS.values()),
+        "max_abs_err": gk["max_abs_err"],
+        "ms": gk["ms"],
+        "plain_ms": gk["plain_ms"],
+        "bound_ms": gk["bound_ms"],
+        "bound_by": gk["bound_by"],
+        "library_ms": None,
+    })
+    say("result", "terrain lookup (geom_terrain) ms/launch | plain ms | "
+        "bound ms at 4000 envs (nvcc "
+        f"{build_s['geom_terrain']:.1f}s): " + ", ".join(
+            f"{gn}/{wn} {c['ms']:.4f} | {c['plain_ms']:.2f} | "
+            f"{c['bound_ms']:.5f}" for (gn, wn), c in gk["cases"].items())
+        + f"; launches on the paths by phase: {LOOKUPS}")
     missing = [k["name"] for k in kernels if not k["launches"]]
     if missing:
-        raise AssertionError(f"variants not launched on a path: {missing}")
+        raise AssertionError(f"kernels not launched on a path: {missing}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     import torch

@@ -32,11 +32,22 @@ channel-major (state 13+2nv, tau nv, payload 1, CoM shift 3, restitution 1,
 mixed friction 1, then implicit damping nv when given, then with terrain
 the height under each geom ng and its normal 3ng, then with world boxes
 the env origin 3), and unpacks the [13+2nv+3nr+3ng, N] output. The
-terrain rows come from plain gathers into the height grid at the call's
-entry state (:func:`.soa_physics.sample_geom_terrain`), as the JAX
-package samples them outside its kernel. The robot model, the solver
-constants and the world boxes are a flat float32 table packed once per
-(model, sim config, boxes, device) by :func:`pack_constants`.
+robot model, the solver constants and the world boxes are a flat float32
+table packed once per (model, sim config, boxes, device) by
+:func:`pack_constants`.
+
+The terrain rows are the height and unit normal under every geom at the
+call's entry state, which the JAX package samples outside its kernel
+(``ops/soa_physics.py::_sample_geom_terrain``, inside
+``physics_step_pallas``). On the card a second hand-written kernel,
+``csrc/geom_terrain.cu`` (a thread per env and geom: FK along the geom's
+limb chain from the same constant table, then the windowed bilinear
+lookup), writes them straight into the packed input
+(:meth:`PhysicsStepKernel.launch_geom_terrain`, its own library built the
+same way); its plain version is :func:`.soa_physics.sample_geom_terrain`
+(:func:`geom_terrain_at`), which the CPU path, the tests and the smoke
+run's holds use, and :func:`build_geom_terrain_host_library` builds its
+body with ``g++`` for the CPU tests.
 """
 
 from __future__ import annotations
@@ -49,7 +60,7 @@ import subprocess
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -61,12 +72,13 @@ from .world import WorldBoxes
 from .contact import TerrainGrid, Window
 from .physics import StepOutput
 from .soa_physics import (FIXED_BASE_APPARENT, _v3, check_supported,
-                          physics_step_soa, sample_geom_terrain,
-                          static_friction)
+                          lookup_window, physics_step_soa,
+                          sample_geom_terrain, static_friction)
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
-SOURCES = ("substep_chain.cuh", "physics_step.cu", "physics_step_host.cpp")
+SOURCES = ("substep_chain.cuh", "physics_step.cu", "physics_step_host.cpp",
+           "geom_terrain.cuh", "geom_terrain.cu", "geom_terrain_host.cpp")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "--fmad=false",
               "-Xptxas", "-v")
@@ -158,10 +170,7 @@ def build_cuda_library(variant: Variant, phase_clocks: bool = False):
     out = cuda_library_path(variant, phase_clocks)
     if os.path.exists(out):
         return out, "", 0.0
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the CUDA toolkit is required to "
-                           "build the physics kernel")
+    nvcc = _nvcc()
     defs = [f"-DRL_{k}={v}" for k, v in zip(
         ("D", "K", "TER", "WLD", "LEG", "FIX"), variant)]
     t = time.perf_counter()
@@ -171,17 +180,37 @@ def build_cuda_library(variant: Variant, phase_clocks: bool = False):
     return out, log, time.perf_counter() - t
 
 
-def build_cuda_libraries(variants: Sequence[Variant] = CUDA_VARIANTS,
-                         phase_clocks: bool = False
-                         ) -> Dict[Variant, tuple]:
-    """Build the variants' libraries in parallel, an nvcc each (as many at
-    once as the machine has cores); {variant: (path, log, seconds)}."""
-    variants = [tuple(v) for v in variants]
-    with ThreadPoolExecutor(max(1, min(len(variants),
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: the CUDA toolkit is required to "
+                           "build the physics kernels")
+    return nvcc
+
+
+def geom_terrain_library_path() -> str:
+    return os.path.join(ROOT_DIR, "build", "torch_kernels", sources_hash(),
+                        "libgeom_terrain.so")
+
+
+def build_geom_terrain_library():
+    """Build (or find) the terrain lookup's CUDA library; returns (path,
+    compiler log, seconds of its nvcc), as :func:`build_cuda_library`."""
+    out = geom_terrain_library_path()
+    if os.path.exists(out):
+        return out, "", 0.0
+    t = time.perf_counter()
+    log = _compile([_nvcc(), *NVCC_FLAGS, "geom_terrain.cu"], out)
+    return out, log, time.perf_counter() - t
+
+
+def _in_parallel(jobs: List[Callable[[], tuple]]) -> List[tuple]:
+    """Run build jobs at once, as many as the machine has cores."""
+    if not jobs:
+        return []
+    with ThreadPoolExecutor(max(1, min(len(jobs),
                                        os.cpu_count() or 1))) as pool:
-        built = list(pool.map(
-            lambda v: build_cuda_library(v, phase_clocks), variants))
-    return dict(zip(variants, built))
+        return list(pool.map(lambda job: job(), jobs))
 
 
 def build_host_library(build_dir: str, lanes_reversed: bool = False) -> str:
@@ -199,6 +228,44 @@ def build_host_library(build_dir: str, lanes_reversed: bool = False) -> str:
                   *(["-DRL_HOST_LANES_REVERSED"] if lanes_reversed else []),
                   "physics_step_host.cpp"], out)
     return out
+
+
+def build_geom_terrain_host_library(build_dir: str) -> str:
+    """Build the CPU library of the terrain lookup's body with g++ into
+    build_dir: the whole body and each of its halves
+    (:func:`load_geom_terrain_host_library`)."""
+    out = os.path.join(build_dir, f"libgeom_terrain_host_{sources_hash()}.so")
+    if not os.path.exists(out):
+        gxx = shutil.which("g++")
+        if gxx is None:
+            raise RuntimeError("g++ not found")
+        _compile([gxx, *HOST_FLAGS, "geom_terrain_host.cpp"], out)
+    return out
+
+
+# rl_geom_terrain's arguments (rl_geom_terrain_host's all of them): x, cst,
+# n, D, K, ng, ct, the grid, H, W, border, scale, ix0, iy0, rows, cols, xy
+_GT_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_float,
+            ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p]
+
+
+def load_geom_terrain_host_library(path: str):
+    lib = ctypes.CDLL(path)
+    lib.rl_geom_terrain_host.argtypes = _GT_ARGS
+    lib.rl_geom_xy_host.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                    *[ctypes.c_int] * 4, ctypes.c_void_p]
+    lib.rl_geom_lookup_host.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_float, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, *[ctypes.c_void_p] * 4]
+    for fn in (lib.rl_geom_terrain_host, lib.rl_geom_xy_host,
+               lib.rl_geom_lookup_host):
+        fn.restype = ctypes.c_int
+    return lib
 
 
 def load_host_library(path: str):
@@ -284,12 +351,20 @@ def pack_constants(model, sim_cfg, layout: LimbLayout,
     return t.astype(np.float32)
 
 
+def terrain_row(model, has_imp: bool) -> int:
+    """The first of the packed input's terrain rows: after the state, the
+    torques, the 6 DR rows and, with ``has_imp``, the implicit damping."""
+    return 13 + 3 * model.nv + 6 + (model.nv if has_imp else 0)
+
+
 def pack_inputs(model, state: SimState, tau, params: PhysParams,
                 implicit_damp, terrain: Optional[TerrainGrid] = None,
                 geom_terrain=None, env_origin=None) -> torch.Tensor:
     """[C_in, N] float32 channel-major input of the kernel. With a terrain
     grid, ``geom_terrain`` is (height [N, ng], normal [N, ng, 3]) under
-    each geom (:func:`.soa_physics.sample_geom_terrain`); with world boxes,
+    each geom (:func:`.soa_physics.sample_geom_terrain`), or None to leave
+    the terrain rows unwritten for
+    :meth:`PhysicsStepKernel.launch_geom_terrain`; with world boxes,
     ``env_origin`` [N, 3] places them."""
     chans = [state.base_pos.T, state.base_quat.T, state.base_lin_vel.T,
              state.base_ang_vel.T, state.q.T, state.qd.T, tau.T,
@@ -298,17 +373,25 @@ def pack_inputs(model, state: SimState, tau, params: PhysParams,
              (0.5 * (params.friction + static_friction(terrain)))[None]]
     if implicit_damp is not None:
         chans.append(implicit_damp.T)
-    if terrain is not None:
+    N, ng = state.q.shape[0], model.ng
+    ct = terrain_row(model, implicit_damp is not None)
+    c_in = (ct + (4 * ng if terrain is not None else 0)
+            + (3 if env_origin is not None else 0))
+    x = torch.empty((c_in, N), dtype=torch.float32, device=state.q.device)
+    torch.cat(chans, dim=0, out=x[:ct])
+    if terrain is not None and geom_terrain is not None:
         hh, nn = geom_terrain
-        chans += [hh.T, nn.reshape(nn.shape[0], -1).T]
+        x[ct:ct + ng] = hh.T
+        x[ct + ng:ct + 4 * ng] = nn.reshape(N, -1).T
     if env_origin is not None:
-        chans.append(env_origin.T)
-    return torch.cat(chans, dim=0).contiguous()
+        x[c_in - 3:] = env_origin.T
+    return x
 
 
 def geom_terrain_at(model, sim_cfg, layout, state: SimState,
                     terrain: TerrainGrid, window: Optional[Window]):
-    """The terrain rows' values at ``state`` (the call's entry state)."""
+    """The terrain rows' values at ``state`` (the call's entry state), by
+    the plain version of the lookup kernel."""
     return sample_geom_terrain(
         model, layout, sim_cfg, terrain, _v3(state.base_pos),
         tuple(state.base_quat[:, i] for i in range(4)),
@@ -376,15 +459,17 @@ def legacy_contact(sim_cfg) -> bool:
 
 
 class PhysicsStepKernel:
-    """The built CUDA libraries (one per variant), the constant tables, and
-    the launch counts.
+    """The built CUDA libraries (one per variant, and the terrain
+    lookup's), the constant tables, and the launch counts.
 
-    ``launches`` grows by one at each kernel launch and nowhere else, and
-    ``variant_launches[variant]`` with it; ``terrain_launches`` counts the
-    launches on terrain among them, ``world_launches`` those with world
-    boxes, ``legacy_launches`` those with the legacy contact model and
-    ``fixed_base_launches`` those with a fixed base (a launch counts in
-    each that applies: a fixed-base launch is also a legacy launch)."""
+    ``launches`` grows by one at each physics kernel launch and nowhere
+    else, and ``variant_launches[variant]`` with it; ``terrain_launches``
+    counts the launches on terrain among them, ``world_launches`` those
+    with world boxes, ``legacy_launches`` those with the legacy contact
+    model and ``fixed_base_launches`` those with a fixed base (a launch
+    counts in each that applies: a fixed-base launch is also a legacy
+    launch). ``geom_terrain_launches`` grows by one at each launch of the
+    terrain lookup kernel and nowhere else."""
 
     def __init__(self, phase_clocks: bool = False):
         self.phase_clocks = phase_clocks   # the timing build
@@ -394,14 +479,19 @@ class PhysicsStepKernel:
         self.legacy_launches = 0
         self.fixed_base_launches = 0
         self.variant_launches: Dict[Variant, int] = {}
+        self.geom_terrain_launches = 0
         # {variant: (path, compiler log, seconds of its nvcc)}
         self.builds: Dict[Variant, tuple] = {}
+        # the same for the terrain lookup's library, once built
+        self.geom_terrain_build: Optional[tuple] = None
         self._libs = {}
+        self._gt_lib = None
         self._tables = {}
 
     def zero_counts(self):
         self.launches = self.terrain_launches = self.world_launches = 0
         self.legacy_launches = self.fixed_base_launches = 0
+        self.geom_terrain_launches = 0
         self.variant_launches = {}
 
     def _bind(self, variant: Variant, path: str):
@@ -419,15 +509,37 @@ class PhysicsStepKernel:
         self._libs[variant] = lib
         return lib
 
+    def _bind_geom_terrain(self, built: tuple):
+        lib = ctypes.CDLL(built[0])
+        lib.rl_geom_terrain.argtypes = _GT_ARGS + [ctypes.c_void_p]
+        lib.rl_geom_terrain.restype = ctypes.c_int
+        self.geom_terrain_build = built
+        self._gt_lib = lib
+        return lib
+
     def build_all(self, variants: Sequence[Variant] = CUDA_VARIANTS
                   ) -> Dict[Variant, tuple]:
-        """Build every variant's library in parallel and bind them."""
+        """Build every variant's library and the terrain lookup's in
+        parallel, an nvcc each, and bind them; returns the variants'
+        builds (the lookup's is :attr:`geom_terrain_build`)."""
         todo = [tuple(v) for v in variants if tuple(v) not in self._libs]
-        built = build_cuda_libraries(todo, self.phase_clocks)
-        for v, b in built.items():
+        jobs = [lambda v=v: build_cuda_library(v, self.phase_clocks)
+                for v in todo]
+        if self._gt_lib is None:
+            jobs.append(build_geom_terrain_library)
+        built = _in_parallel(jobs)
+        for v, b in zip(todo, built):
             self.builds[v] = b
             self._bind(v, b[0])
+        if self._gt_lib is None:
+            self._bind_geom_terrain(built[-1])
         return {tuple(v): self.builds[tuple(v)] for v in variants}
+
+    def load_geom_terrain(self):
+        """Build the terrain lookup's library if needed and bind it."""
+        if self._gt_lib is None:
+            self._bind_geom_terrain(build_geom_terrain_library())
+        return self._gt_lib
 
     def load(self, variant: Variant):
         """Build the variant's library if needed and bind its entry
@@ -540,6 +652,56 @@ class PhysicsStepKernel:
         self.legacy_launches += int(legacy)
         self.fixed_base_launches += int(fixed_base)
 
+    def launch_geom_terrain(self, x: torch.Tensor, cst: torch.Tensor,
+                            layout: LimbLayout, ng: int, ct: int,
+                            terrain: TerrainGrid,
+                            window: Optional[Window] = None,
+                            xy: Optional[torch.Tensor] = None):
+        """Launch the terrain lookup on the packed [C_in, N] input ``x`` on
+        the current stream: it reads the state rows and writes the ng
+        height rows and 3 ng normal rows from row ``ct``, looked up through
+        ``window`` (None: the whole grid); with ``xy`` [2 ng, N] also each
+        geom's world (x, y). Raises if the launch fails."""
+        h = terrain.height
+        arrays = [x, cst, h] + ([] if xy is None else [xy])
+        for t in arrays:
+            if (t.device.type != "cuda" or t.dtype != torch.float32
+                    or not t.is_contiguous() or t.device != x.device):
+                raise ValueError("lookup arrays must be contiguous float32 "
+                                 "tensors on one CUDA device")
+        N = x.shape[1]
+        if x.dim() != 2 or h.dim() != 2 or ct + 4 * ng > x.shape[0]:
+            raise ValueError(f"input {tuple(x.shape)} has no {4 * ng} "
+                             f"terrain rows from row {ct}")
+        if xy is not None and tuple(xy.shape) != (2 * ng, N):
+            raise ValueError(f"xy has shape {tuple(xy.shape)}, expected "
+                             f"{(2 * ng, N)}")
+        H, W = h.shape
+        if window is None:
+            ix0 = iy0 = None
+            rows, cols = H, W
+        else:
+            ix0, iy0, rows, cols = window
+            for t in (ix0, iy0):
+                if (t.device != x.device or t.dtype != torch.int64
+                        or not t.is_contiguous() or tuple(t.shape) != (N,)):
+                    raise ValueError("window corners must be contiguous "
+                                     "int64 [N] tensors on the input's "
+                                     "device")
+        lib = self.load_geom_terrain()
+
+        def ptr(t):
+            return ctypes.c_void_p(None if t is None else t.data_ptr())
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.rl_geom_terrain(
+            ptr(x), ptr(cst), N, layout.D, layout.K, ng, ct, ptr(h), H, W,
+            terrain.border_size, terrain.horizontal_scale, ptr(ix0),
+            ptr(iy0), rows, cols, ptr(xy), ctypes.c_void_p(stream))
+        if err != 0:
+            raise RuntimeError(f"terrain lookup launch failed: cudaError "
+                               f"{err}")
+        self.geom_terrain_launches += 1
+
     def __call__(self, model, sim_cfg, state, tau, params, implicit_damp,
                  layout, terrain=None, terrain_window=None, world_boxes=None,
                  env_origin=None, world_friction=1.0,
@@ -552,10 +714,14 @@ class PhysicsStepKernel:
             implicit_damp = torch.zeros_like(tau)
         cst = self.table(model, sim_cfg, layout, device, world_boxes,
                          world_friction)
-        gt = (None if terrain is None else geom_terrain_at(
-            model, sim_cfg, layout, state, terrain, terrain_window))
-        x = pack_inputs(model, state, tau, params, implicit_damp, terrain, gt,
-                        env_origin)
+        # the terrain rows are left to the lookup kernel
+        x = pack_inputs(model, state, tau, params, implicit_damp, terrain,
+                        None, env_origin)
+        if terrain is not None:
+            win = lookup_window(sim_cfg, terrain, state.base_pos[:, 0],
+                                state.base_pos[:, 1], terrain_window)
+            self.launch_geom_terrain(x, cst, layout, model.ng,
+                                     terrain_row(model, True), terrain, win)
         y = torch.empty((out_channels(model), x.shape[1]),
                         dtype=torch.float32, device=device)
         self.launch_packed(x, y, cst, layout, True, terrain is not None,

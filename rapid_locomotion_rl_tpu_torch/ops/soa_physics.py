@@ -646,12 +646,23 @@ def sample_geom_terrain(model, layout: LimbLayout, sim_cfg,
     xy = fk_geom_xy(model, layout, base_pos, base_quat, q)
     xs = torch.stack([x for x, _ in xy], dim=-1)          # [N, ng]
     ys = torch.stack([y for _, y in xy], dim=-1)
+    window = lookup_window(sim_cfg, terrain, base_pos[0], base_pos[1],
+                           window)
+    return terrain_height_and_normal(terrain, xs, ys, window)
+
+
+def lookup_window(sim_cfg, terrain: TerrainGrid, base_x, base_y,
+                  window: Optional[Window] = None) -> Optional[Window]:
+    """The window that a physics call's terrain lookup reads through: the
+    caller's hoisted ``window``, else the square
+    ``sim_cfg.terrain_patch_size`` window around the base; none (the whole
+    grid) when that size is 0, whatever the caller passes."""
     P = int(getattr(sim_cfg, "terrain_patch_size", 0) or 0)
     if P <= 0:
-        window = None
-    elif window is None:
-        window = square_window(terrain, base_pos[0], base_pos[1], P)
-    return terrain_height_and_normal(terrain, xs, ys, window)
+        return None
+    if window is None:
+        window = square_window(terrain, base_x, base_y, P)
+    return window
 
 
 def static_friction(terrain: Optional[TerrainGrid]) -> float:

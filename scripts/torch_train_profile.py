@@ -15,8 +15,9 @@ half it prints the wall time, the device time summed over all CUDA kernels
 share of the wall time (the device busy share; its complement is the idle
 share), the kernel launches, and the top kernels by device time. Then it
 takes one physics call on the final state apart: the kernels launched by
-the terrain lookup (the positions-only FK and the gathers that give K1 its
-terrain rows) and by the whole call, and their times by CUDA events
+the terrain lookup that gives K1 its terrain rows (on the card its kernel,
+csrc/geom_terrain.cu; on the CPU its plain version, the positions-only FK
+and the gathers) and by the whole call, and their times by CUDA events
 (median of 5, taken in turns), beside K1's own. A last line holds the
 numbers as JSON, beside the card's name and power limit.
 
@@ -36,6 +37,7 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
+CALLS = 10      # physics calls in the profile that counts their kernels
 WEIGHTS = os.path.join(ROOT, "runs", "r5_flagship", "checkpoints",
                        "ac_weights_last.pkl")
 HORIZON = 24
@@ -161,17 +163,32 @@ def main(argv=None) -> int:
                                                      True, True), reps=50)
              if on_card else None)
 
+    call_win = CP.lookup_window(cfg.sim, grid, sim.base_pos[:, 0],
+                                sim.base_pos[:, 1], win)
+
     def lookup():
-        return CP.geom_terrain_at(env.model, cfg.sim, layout, sim, grid, win)
+        """The lookup as the physics call runs it."""
+        if on_card:
+            CP.KERNEL.launch_geom_terrain(x, cst, layout, env.model.ng,
+                                          CP.terrain_row(env.model, True),
+                                          grid, call_win)
+        else:
+            CP.geom_terrain_at(env.model, cfg.sim, layout, sim, grid, win)
 
     def call():
         return CP.physics_step_cuda(
             env.model, cfg.sim, sim, state.torques, params, terrain=grid,
             implicit_damp=imp, terrain_window=win)
 
+    # kernels per call, counted over CALLS calls in one profile: a short
+    # profile after the long ones above was seen to miss a kernel (the
+    # card's H100, torch 2.11), which per call would read as one too few
     lookup(), call()
-    lookup_n = profiled(lookup, on_card)[3]
-    call_n = profiled(call, on_card)[3]
+    lookup_n = profiled(lambda: [lookup() for _ in range(CALLS)], on_card)[3]
+    _, _, _, call_n, call_top = profiled(
+        lambda: [call() for _ in range(CALLS)], on_card)
+    lookup_n = lookup_n and lookup_n / CALLS
+    call_n = call_n and call_n / CALLS
     lk, cl = [], []
     for _ in range(5):
         lk.append(time_ms(lookup, on_card))
@@ -197,13 +214,15 @@ def main(argv=None) -> int:
           f"update {timings['update_s']:.3f} s")
     print(f"rollout: {nm(r_n and r_n / HORIZON, '.0f')} kernels per env "
           f"step")
-    print(f"physics call on the final state: {nm(call_n, 'd')} kernels, "
-          f"{call_ms:.3f} ms; terrain lookup {nm(lookup_n, 'd')} kernels, "
+    print(f"physics call on the final state: {nm(call_n, 'g')} kernels, "
+          f"{call_ms:.3f} ms; terrain lookup {nm(lookup_n, 'g')} kernels, "
           f"{lookup_ms:.3f} ms; K1 1 kernel, {nm(k1_ms, '.4f')} ms. x{d} per "
           f"env step: calls {call_ms * d / step_ms * 100:.1f}%, lookups "
           f"{lookup_ms * d / step_ms * 100:.1f}%, K1 "
           f"{nm(k1_ms and k1_ms * d / step_ms * 100, '.2f')}% of the env "
           f"step")
+    for name, k, t in call_top:
+        print(f"  physics call: {k / CALLS:g}x {name[:90]}")
     print(json.dumps({
         "card": card, "envs": n_envs, "steps": HORIZON,
         "rollout": {"wall_s": r_wall, "device_ms": r_dev, "kernels": r_n,

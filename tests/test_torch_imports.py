@@ -92,6 +92,25 @@ def test_no_jax_import_lines():
     assert not hits, hits
 
 
+def test_kernel_sources_include_no_torch_header():
+    """The port's kernel sources (csrc/: K1 and the terrain lookup) have a
+    plain C interface: no PyTorch, ATen, c10 or pybind11 header, so that
+    nvcc builds each in seconds; and every one of them is in
+    ops/cuda_physics.py's SOURCES, whose hash names the build directory."""
+    from rapid_locomotion_rl_tpu_torch.ops import cuda_physics as CP
+    csrc = os.path.join(PORT, "csrc")
+    names = sorted(os.listdir(csrc))
+    assert {"geom_terrain.cuh", "geom_terrain.cu",
+            "geom_terrain_host.cpp"} <= set(names)
+    assert set(names) == set(CP.SOURCES), names
+    pat = re.compile(r"^\s*#\s*include\s*[<\"](torch|ATen|c10|pybind11)"
+                     r"[/.]")
+    hits = [f"{n}:{i}: {line.rstrip()}" for n in names
+            for i, line in enumerate(open(os.path.join(csrc, n)), 1)
+            if pat.match(line)]
+    assert not hits, hits
+
+
 def test_ops_import_nothing_of_envs():
     """The physics layer sits below the env: no module of ``ops/`` imports
     from ``envs/`` (the world boxes live in ``ops/world.py``)."""
